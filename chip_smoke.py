@@ -1,0 +1,451 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (page_segmentation_tpu_torch) on one
+NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels and host library from the sources in this
+checkout, holds every kernel against its plain PyTorch version on the card,
+checks the bf16 forward against float32, and drives the main path — the
+throughput predictor over synthetic 300-DPI A4 pages with the device
+cc-majority vote on the CUDA labeler — then checks what comes out.  Prints
+one line per phase, then a JSON line of per-kernel measurements, and as the
+last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
+line, when there is no card, when the package is missing, or when any phase
+fails.  Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+A4 = (3508, 2480)          # 300-DPI A4 page
+SCALE = 6 / 50             # normalize 50 px text lines to 6 px
+HOST_DECIMATE = 8
+BATCH = 48
+N_PAGES = 96
+LARGE_PAGE = (6016, 4096)  # a page above the TPU's single-block size
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+TIMING_REPS = 10
+DEVICE = "cuda"
+
+
+def log(msg: str):
+    print(msg, flush=True)
+
+
+# ------------------------------------------------------------------- inputs
+def synthesize_pages(n: int, h: int, w: int, seed: int, rules: bool = False):
+    """Synthetic 300-DPI historical pages: 50 px text lines of glyph blocks
+    (shades 10-60 on paper 235) and, on every third page, a figure block;
+    with ``rules``, page-spanning horizontal and vertical rules join the
+    lines into one long component.  Returns (pages, binaries) uint8, binary
+    0 on ink and 255 on paper."""
+    rng = np.random.default_rng(seed)
+    line_height = 50
+    pages = np.full((n, h, w), 235, np.uint8)
+    binaries = np.full((n, h, w), 255, np.uint8)
+    row_starts = np.arange(h // 8, h - h // 8 - line_height, int(line_height * 1.6))
+    col_starts = np.arange(w // 10, w - w // 10 - 25, 35)
+    for i in range(n):
+        page, binary = pages[i], binaries[i]
+        present = rng.random((len(row_starts), len(col_starts))) < 0.85
+        shades = rng.integers(10, 60, size=present.shape).astype(np.uint8)
+        for ri, row in enumerate(row_starts):
+            for c, shade in zip(col_starts[present[ri]], shades[ri][present[ri]]):
+                page[row : row + line_height, c : c + 25] = shade
+                binary[row : row + line_height, c : c + 25] = 0
+        if i % 3 == 0:
+            fig = (slice(int(h * 0.7), int(h * 0.85)), slice(int(w * 0.2), int(w * 0.8)))
+            page[fig] = 120
+            binary[fig] = 0
+        if rules:
+            for y in range(h // 16, h, h // 8):
+                page[y : y + 3] = 20
+                binary[y : y + 3] = 0
+            for x in (w // 20, w - w // 20):
+                page[:, x : x + 3] = 20
+                binary[:, x : x + 3] = 0
+    return pages, binaries
+
+
+def snake(h: int, w: int) -> np.ndarray:
+    ink = np.zeros((h, w), np.uint8)
+    for row in range(0, h, 2):
+        ink[row] = 1
+        if row + 1 < h:
+            ink[row + 1, -1 if (row // 2) % 2 == 0 else 0] = 1
+    return ink
+
+
+def spiral(h: int, w: int) -> np.ndarray:
+    ink = np.zeros((h, w), np.uint8)
+    top, bottom, left, right = 0, h - 1, 0, w - 1
+    while top < bottom and left < right:
+        ink[top, left : right + 1] = 1
+        ink[top : bottom + 1, right] = 1
+        ink[bottom, left : right + 1] = 1
+        ink[top : bottom + 1, left] = 1
+        top += 4; bottom -= 4; left += 4; right -= 4
+    return ink
+
+
+def scipy_min_labels(ink: np.ndarray) -> np.ndarray:
+    """Independent oracle: scipy's 4-connected labeling, relabeled to
+    1 + the minimum flat index of each component."""
+    from scipy import ndimage
+
+    labels, n = ndimage.label(ink)
+    flat = np.arange(ink.size, dtype=np.int64).reshape(ink.shape)
+    mins = np.zeros(n + 1, np.int64)
+    mins[1:] = ndimage.minimum(flat, labels, np.arange(1, n + 1))
+    return np.where(labels > 0, mins[labels] + 1, 0).astype(np.int32)
+
+
+# ------------------------------------------------------------------ timing
+def cuda_ms(fn, reps: int = TIMING_REPS, warmup: int = 2) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` calls, each bracketed by
+    CUDA events, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def normalized_shapes():
+    """(out_h, out_w) of a normalized A4 page and its padded (pad_h, pad_w)."""
+    out_h, out_w = int(round(A4[0] * SCALE)), int(round(A4[1] * SCALE))
+    return (out_h, out_w), (-(-out_h // 8) * 8, -(-out_w // 8) * 8)
+
+
+def label_bound_ms(n_pixels: int) -> float:
+    """Least time for the labeling: read 1 B of ink and write 4 B of label
+    per pixel at the device memory rate (it does no tensor-core work)."""
+    return n_pixels * (1 + 4) / HBM_BYTES_PER_S * 1e3
+
+
+# ------------------------------------------------------------------ phases
+def phase_card():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"phase card: torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    from page_segmentation_tpu_torch import native
+    from page_segmentation_tpu_torch._kernels import KERNELS, build_libraries
+
+    t0 = time.perf_counter()
+    logs = build_libraries([*KERNELS.values(), native.NATIVE_SPEC])
+    build_s = time.perf_counter() - t0
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+    log(f"phase build: {len(logs)} libraries built in {build_s:.2f} s (parallel compilers)")
+
+
+def phase_kernels(text_ink: np.ndarray, large_ink: np.ndarray):
+    """Every kernel entry point against the plain PyTorch labeler on the
+    card, exact equality; timings at the main path's shape."""
+    from page_segmentation_tpu_torch.ops import cuda_cc
+
+    dev = torch.device(DEVICE)
+    max_err = 0
+
+    def hold(name, got, want):
+        nonlocal max_err
+        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        if got.shape != want.shape or err != 0:
+            raise AssertionError(f"{name}: kernel labels differ from the plain version (max |d| {err})")
+        max_err = max(max_err, err)
+        log(f"  {name}: kernel == plain, {tuple(got.shape)}, {int((got > 0).sum())} ink px")
+
+    h, w = text_ink.shape[1:]
+    rng = np.random.default_rng(SEED)
+    cases = {
+        "batch random ink 0.45": (rng.random(text_ink.shape) < 0.45),
+        "batch text-like ink": text_ink,
+        "snake/spiral/empty/full": np.stack([snake(h, w), spiral(h, w),
+                                             np.zeros((h, w), np.uint8), np.ones((h, w), np.uint8)]),
+    }
+    for name, ink in cases.items():
+        ink_dev = torch.from_numpy(ink.astype(bool)).to(dev)
+        got, _ = cuda_cc.cc_min_label_batch(ink_dev, device=dev)
+        want, _ = cuda_cc.cc_min_label_reference(ink_dev)
+        torch.cuda.synchronize()
+        hold(f"cc_min_label_batch[{name}]", got, want)
+    page_dev = torch.from_numpy(text_ink[0].astype(bool)).to(dev)
+    got, _ = cuda_cc.cc_min_label_pallas(page_dev, device=dev)
+    hold("cc_min_label_pallas[one page]", got, cuda_cc.cc_min_label_reference(page_dev[None])[0][0])
+
+    large_dev = torch.from_numpy(large_ink.astype(bool)).to(dev)
+    got, _ = cuda_cc.cc_min_label_tiled(large_dev, device=dev)
+    plain, cycles = cuda_cc.cc_min_label_reference(large_dev[None])
+    hold(f"cc_min_label_tiled[{LARGE_PAGE[0]}x{LARGE_PAGE[1]}]", got, plain[0])
+    oracle = torch.from_numpy(scipy_min_labels(large_ink))
+    if not torch.equal(got.cpu(), oracle):
+        raise AssertionError("cc_min_label_tiled differs from scipy.ndimage.label")
+    log(f"  cc_min_label_tiled == scipy.ndimage.label relabeled to min flat index "
+        f"(plain version took {cycles} scan cycles)")
+
+    main_dev = torch.from_numpy(text_ink.astype(bool)).to(dev)
+    main = {
+        "ms": cuda_ms(lambda: cuda_cc.cc_min_label_batch(main_dev, device=dev)),
+        "plain_ms": cuda_ms(lambda: cuda_cc.cc_min_label_reference(main_dev), reps=3, warmup=1),
+        "bound_ms": label_bound_ms(main_dev.numel()),
+    }
+    tiled = {
+        "shape": list(LARGE_PAGE),
+        "ms": cuda_ms(lambda: cuda_cc.cc_min_label_tiled(large_dev, device=dev)),
+        "plain_ms": cuda_ms(lambda: cuda_cc.cc_min_label_reference(large_dev[None]),
+                            reps=3, warmup=1),
+        "bound_ms": label_bound_ms(large_dev.numel()),
+    }
+    log(f"phase kernels: cc_label at {tuple(main_dev.shape)}: kernel {main['ms']:.4f} ms, "
+        f"plain {main['plain_ms']:.3f} ms, byte bound {main['bound_ms']:.4f} ms; "
+        f"at {LARGE_PAGE}: kernel {tiled['ms']:.4f} ms, plain {tiled['plain_ms']:.3f} ms, "
+        f"bound {tiled['bound_ms']:.4f} ms")
+    return dict(main, max_abs_err=max_err, tiled=tiled)
+
+
+def phase_forward(state, dec: np.ndarray):
+    """FCNSkip on the card against the same module on the CPU (whose bf16
+    and float32 forwards the CPU tests hold to the JAX module's), with TF32
+    off so that float32 is float32: float32 logits to atol 1e-4 and argmax
+    agreement >= 99.99 %, bf16 argmax agreement >= 99.9 %.  The bf16 vs
+    float32 agreement on the card is reported: with random weights many
+    logits are near-ties, so it measures bf16 itself, not the port."""
+    from page_segmentation_tpu_torch.inference.pipeline import _device_normalize
+    from page_segmentation_tpu_torch.models.fcn import FCNSkip
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (out_h, out_w), (pad_h, pad_w) = normalized_shapes()
+    img = _device_normalize(out_h, out_w, pad_h, pad_w)(torch.from_numpy(dec))
+    logits = {}
+    for device in (DEVICE, "cpu"):
+        for dtype in (torch.float32, torch.bfloat16):
+            model = FCNSkip(3, dtype=dtype)
+            model.load_state_dict(state)
+            with torch.inference_mode():
+                logits[device, dtype] = model.to(device).forward_nchw(img.to(device)).cpu()
+
+    def agreement(a, b):
+        return float((logits[a].argmax(1) == logits[b].argmax(1)).float().mean())
+
+    f32_err = float((logits[DEVICE, torch.float32] - logits["cpu", torch.float32]).abs().max())
+    f32 = agreement((DEVICE, torch.float32), ("cpu", torch.float32))
+    bf16 = agreement((DEVICE, torch.bfloat16), ("cpu", torch.bfloat16))
+    mixed = agreement((DEVICE, torch.bfloat16), (DEVICE, torch.float32))
+    log(f"phase forward on {tuple(img.shape)}: card vs CPU float32 max |d logit| {f32_err:.2e}, "
+        f"argmax agreement {f32:.6f}; bf16 agreement {bf16:.6f}; "
+        f"card bf16 vs card float32 agreement {mixed:.6f} (reported)")
+    if f32_err > 1e-4 or f32 < 0.9999 or bf16 < 0.999:
+        raise AssertionError("the forward on the card disagrees with the CPU forward")
+
+
+def phase_main_path(state, pages, binaries):
+    """ThroughputPredictor(cc_vote="pallas") over N_PAGES A4 pages at batch
+    BATCH; checks the labeler ran and that the outputs are right."""
+    from page_segmentation_tpu_torch import native
+    from page_segmentation_tpu_torch.core.colors import DEFAULT_IMAGE_MAP
+    from page_segmentation_tpu_torch.inference.output import finish_mask_trio
+    from page_segmentation_tpu_torch.inference.pipeline import (
+        ThroughputPredictor,
+        make_fused_predict,
+    )
+    from page_segmentation_tpu_torch.models.fcn import FCNSkip
+    from page_segmentation_tpu_torch.ops import cuda_cc
+
+    palette = DEFAULT_IMAGE_MAP.palette
+    module = FCNSkip(3, dtype=torch.bfloat16)
+
+    def predictor(cc_vote):
+        return ThroughputPredictor(
+            module, state, palette, A4, SCALE, host_decimate=HOST_DECIMATE,
+            compute_dtype=torch.bfloat16, download="packed", cc_vote=cc_vote, device=DEVICE)
+
+    tp = predictor("pallas")
+    # warm-up on one batch (cuDNN plans, library loads), outside the count
+    first = tp.execute_batch(tp.prep_batch(pages[:BATCH], binaries[:BATCH]))
+    torch.cuda.synchronize()
+
+    cuda_cc.launches = 0
+    t0 = time.perf_counter()
+    outs = [tuple(a.copy() for a in trio) for trio in tp.run(pages, binaries, batch_size=BATCH)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cuda_cc.launches
+    n_batches = -(-N_PAGES // BATCH)
+    log(f"phase main path: {N_PAGES} pages at batch {BATCH} in {wall:.3f} s = "
+        f"{N_PAGES / wall:.2f} pages/s; cc_label launches {launches}")
+    if launches != 3 * n_batches:
+        raise AssertionError(f"cc_label launched {launches} times, expected {3 * n_batches}")
+
+    out_h, out_w = tp.fused.valid_shape
+    for trio in outs:
+        for arr in trio:
+            if arr.shape != (BATCH, out_h, out_w, 3) or arr.dtype != np.uint8:
+                raise AssertionError(f"trio array {arr.shape} {arr.dtype}")
+    for got, want in zip(outs[0], first):
+        if not np.array_equal(got, want):
+            raise AssertionError("run() and execute_batch() disagree on batch 0")
+
+    # the device vote == the host union-find vote on the card's unvoted labels
+    dev = tp.device
+    dec, ink = tp._prep(pages[:BATCH], binaries[:BATCH])
+    dec = tp._take(dec)
+    ink_packed = torch.from_numpy(tp._pack_ink(ink)).to(dev)
+    palette_dev = tp.palette_dev
+    plain = make_fused_predict(module, (out_h, out_w), download="pred", device=dev)
+    voted = make_fused_predict(module, (out_h, out_w), download="pred", cc_vote="pallas", device=dev)
+    unvoted = plain(dec, palette_dev).cpu().numpy()
+    device_voted = voted(dec, palette_dev, ink_packed).cpu().numpy()
+    ink_padded = np.zeros(unvoted.shape, np.uint8)
+    ink_padded[:, :out_h, :out_w] = ink
+    changed = 0
+    for i in range(BATCH):
+        host = native.cc_vote(ink_padded[i], unvoted[i], 3)
+        if not np.array_equal(host, device_voted[i]):
+            raise AssertionError(f"page {i}: device vote != host ps_cc_vote")
+        changed += int((host != unvoted[i]).sum())
+    for got, want in zip(outs[0], finish_mask_trio(device_voted, ink, palette)):
+        if not np.array_equal(got, want):
+            raise AssertionError("run() trio != trio of the checked device-voted labels")
+    log(f"  device vote == host ps_cc_vote on {BATCH} pages ({changed} px relabeled by the vote); "
+        f"run() trio == trio of those labels")
+
+    # the default placement: the host vote in the finish stage
+    host_trio = predictor("host").execute_batch(tp.prep_batch(pages[:BATCH], binaries[:BATCH]))
+    for got, want in zip(host_trio, outs[0]):
+        if not np.array_equal(got, want):
+            raise AssertionError('cc_vote="host" trio != cc_vote="pallas" trio')
+    log('  cc_vote="host" runs on the card and gives the same trio')
+
+    # per-stage times on one batch
+    t0 = time.perf_counter()
+    prepared = tp.prep_batch(pages[:BATCH], binaries[:BATCH])
+    torch.cuda.synchronize()
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    dec_t, ink_t = tp._take(prepared[0]), tp._take(prepared[2])
+    device_ms = cuda_ms(lambda: tp.fused(dec_t, palette_dev, ink_t), reps=5, warmup=1)
+    downloaded = tp.fused(dec_t, palette_dev, ink_t).cpu().numpy()
+    t0 = time.perf_counter()
+    tp._finish(downloaded, prepared[1])
+    finish_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  stages per batch of {BATCH}: host prep+upload {prep_ms:.1f} ms, device program "
+        f"{device_ms:.3f} ms, host finish {finish_ms:.1f} ms")
+    return launches, tp
+
+
+def phase_profile(tp, pages, binaries):
+    """torch.profiler over one more run of the main path: device time by
+    kernel, and the share of the run's wall time in which the device ran
+    no kernel and no copy (its idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in tp.run(pages, binaries, batch_size=BATCH):
+            pass
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in device):
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    by_name = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    total_us = sum(by_name.values())
+    log(f"phase profile: {N_PAGES} pages in {wall_us / 1e3:.1f} ms under the profiler; device "
+        f"busy {busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}; "
+        f"{len(device)} device events, {total_us / 1e3:.3f} ms of device time")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        log(f"  {us / 1e3:9.3f} ms {us / max(total_us, 1e-9):7.2%}  {name[:110]}")
+    cc = {k: sum(us for name, us in by_name.items() if k in name)
+          for k in ("init_kernel", "merge_kernel", "compress_kernel")}
+    cc_us = sum(cc.values())
+    log(f"  cc_label kernels: {cc_us / 1e3:.3f} ms, {cc_us / max(total_us, 1e-9):.2%} of "
+        f"device time; " + ", ".join(f"{k} {us / 1e3:.3f} ms" for k, us in cc.items()))
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="also trace one main-path run with torch.profiler")
+    profile = parser.parse_args(argv).profile
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    from page_segmentation_tpu_torch.inference.pipeline import nearest_index_array
+    from page_segmentation_tpu_torch.models.bridge import init_params_numpy, params_from_jax
+    from page_segmentation_tpu_torch import native
+
+    t_start = time.perf_counter()
+    phase_card()
+
+    t0 = time.perf_counter()
+    pages, binaries = synthesize_pages(N_PAGES, *A4, seed=SEED)
+    large_ink = synthesize_pages(1, *LARGE_PAGE, seed=SEED + 1, rules=True)[1][0] == 0
+    (out_h, out_w), padded = normalized_shapes()
+    text_ink = np.zeros((BATCH,) + padded, np.uint8)
+    text_ink[:, :out_h, :out_w] = native.gather_ink(
+        binaries[:BATCH], nearest_index_array(out_h, A4[0]), nearest_index_array(out_w, A4[1]))
+    log(f"phase inputs: {N_PAGES} synthetic A4 pages + one {LARGE_PAGE} page in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    kernel = phase_kernels(text_ink, large_ink)
+    state = params_from_jax(init_params_numpy(3, SEED))
+    phase_forward(state, native.decimate_u8(pages[:4], HOST_DECIMATE))
+    launches, tp = phase_main_path(state, pages, binaries)
+    if profile:
+        phase_profile(tp, pages, binaries)
+
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [{
+        "name": "cc_label",
+        "route": "cuda",
+        "source": "page_segmentation_tpu_torch/csrc/cc_label.cu",
+        "replaces": "page_segmentation_tpu/ops/pallas_cc.py:68",
+        "also_replaces": "page_segmentation_tpu/ops/pallas_cc.py:129",
+        "shape": list(text_ink.shape),
+        "launches": launches,
+        "max_abs_err": kernel["max_abs_err"],
+        "ms": kernel["ms"],
+        "plain_ms": kernel["plain_ms"],
+        "bound_ms": kernel["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "tiled": kernel["tiled"],
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

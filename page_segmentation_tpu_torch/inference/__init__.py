@@ -1,0 +1,1 @@
+"""inference of the PyTorch/CUDA port (mirrors page_segmentation_tpu.inference)."""

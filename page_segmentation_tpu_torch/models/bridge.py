@@ -1,0 +1,67 @@
+"""Weights bridge between the JAX param tree and the port's state_dict.
+
+The JAX FCN param tree is a nested dict ``{layer: {"kernel", "bias"}}`` of
+arrays: conv kernels HWIO ``(kh, kw, in, out)`` and Keras conv-transpose
+kernels ``(kh, kw, out, in)``.  Both map to torch's layout (conv
+``(out, in, kh, kw)``, conv-transpose ``(in, out, kh, kw)``) by
+``transpose(3, 2, 0, 1)``.
+
+Reading ``params.msgpack`` checkpoints needs flax's serializer and waits
+for a later slice; callers pass the tree as numpy arrays.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_ENCODER = [("conv1", 1, 20), ("conv2", 20, 30), ("conv3", 30, 40), ("conv4", 40, 40),
+            ("conv5", 40, 60), ("conv6", 60, 60), ("conv7", 60, 80)]
+_DECODER_SKIP = [("deconv1", 80, 80, 5), ("deconv2", 80, 60, 2), ("deconv3", 120, 40, 5),
+                 ("deconv4", 100, 30, 2), ("deconv5", 70, 20, 2)]
+
+
+def params_from_jax(tree: Mapping[str, Mapping[str, np.ndarray]]) -> Dict[str, torch.Tensor]:
+    """JAX param tree (``{"conv1": {"kernel", "bias"}, ...}``, optionally
+    wrapped as ``{"params": tree}``) -> the port's float32 state_dict."""
+    if "params" in tree:
+        tree = tree["params"]
+    state = {}
+    for layer, leaves in tree.items():
+        kernel = np.asarray(leaves["kernel"], np.float32)
+        if kernel.ndim != 4:
+            raise ValueError(f"{layer}/kernel must be 4-D, got {kernel.shape}")
+        state[f"{layer}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
+        state[f"{layer}.bias"] = torch.from_numpy(np.asarray(leaves["bias"], np.float32).copy())
+    return state
+
+
+def _layer_shapes(n_classes: int, in_channels: int = 1) -> Dict[str, Tuple[int, ...]]:
+    """FCNSkip kernel shapes in the JAX layout."""
+    shapes = {}
+    for name, cin, cout in _ENCODER:
+        shapes[name] = (5, 5, in_channels if name == "conv1" else cin, cout)
+    for name, cin, cout, k in _DECODER_SKIP:
+        shapes[name] = (k, k, cout, cin)  # Keras transpose layout (kh, kw, out, in)
+    shapes["logits"] = (1, 1, 50, n_classes)
+    return shapes
+
+
+def init_params_numpy(n_classes: int, seed: int, in_channels: int = 1):
+    """Random FCNSkip params in the JAX layout: glorot-uniform kernels (fan
+    in/out over the receptive field, as flax's initializer with the
+    transpose layers' in_axis=3/out_axis=2) and zero biases, drawn from a
+    ``numpy.random.Generator`` seeded with ``seed``."""
+    rng = np.random.default_rng(seed)
+    tree = {}
+    for name, shape in _layer_shapes(n_classes, in_channels).items():
+        kh, kw, a, b = shape
+        fan_sum = (a + b) * kh * kw  # fan_in + fan_out, either layout
+        limit = np.sqrt(6.0 / fan_sum)
+        tree[name] = {
+            "kernel": rng.uniform(-limit, limit, size=shape).astype(np.float32),
+            "bias": np.zeros(shape[2] if name.startswith("deconv") else shape[3], np.float32),
+        }
+    return tree

@@ -1,0 +1,85 @@
+"""FCN encoder-decoder per-pixel classifiers (torch).
+
+Counterparts of ``page_segmentation_tpu/models/fcn.py`` ``FCNSkip`` and
+``FCN``: the channel plan 20/30/40/40/60/60/80, 5x5 convs, stride-2 2x2
+transpose convs, and (FCNSkip) the skip concats in the order
+``[upsampled, skip]``.  The public layout is NHWC like the JAX module; the
+net runs NCHW inside (:meth:`forward_nchw`).  ``dtype`` is the compute
+dtype of every layer (float32 params cast per call); logits come back
+float32.  Parameter names follow the JAX param tree (``conv1.weight`` for
+``conv1/kernel``), so ``models/bridge.py`` maps one onto the other.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .layers import TFConv, TFConvTranspose, max_pool_same
+
+
+class _FCNBase(nn.Module):
+    skips = False
+
+    def __init__(self, n_classes: int, dtype: torch.dtype = torch.float32,
+                 s2d_stem: bool = False, in_channels: int = 1):
+        super().__init__()
+        if s2d_stem:
+            raise NotImplementedError(
+                "s2d_stem (the TPU space-to-depth stem rewrite) is not ported yet"
+            )
+        self.n_classes = n_classes
+        self.dtype = dtype
+        dt = dtype
+        # skip concats widen each decoder input by the encoder map it joins
+        s = self.skips
+        self.conv1 = TFConv(in_channels, 20, (5, 5), relu=True, dtype=dt)
+        self.conv2 = TFConv(20, 30, (5, 5), dtype=dt)
+        self.conv3 = TFConv(30, 40, (5, 5), relu=True, dtype=dt)
+        self.conv4 = TFConv(40, 40, (5, 5), dtype=dt)
+        self.conv5 = TFConv(40, 60, (5, 5), relu=True, dtype=dt)
+        self.conv6 = TFConv(60, 60, (5, 5), dtype=dt)
+        self.conv7 = TFConv(60, 80, (5, 5), relu=True, dtype=dt)
+        self.deconv1 = TFConvTranspose(80, 80, (5, 5), relu=True, dtype=dt)
+        self.deconv2 = TFConvTranspose(80, 60, (2, 2), (2, 2), relu=True, dtype=dt)
+        self.deconv3 = TFConvTranspose(60 + 60 * s, 40, (5, 5), relu=True, dtype=dt)
+        self.deconv4 = TFConvTranspose(40 + 60 * s, 30, (2, 2), (2, 2), relu=True, dtype=dt)
+        self.deconv5 = TFConvTranspose(30 + 40 * s, 20, (2, 2), (2, 2), dtype=dt)
+        self.logits = TFConv(20 + 30 * s, n_classes, (1, 1), dtype=dt)
+
+    def _join(self, up, skip):
+        return torch.cat([up, skip], dim=1) if self.skips else up
+
+    def forward_nchw(self, x):
+        """(N, C, H, W) -> float32 logits (N, n_classes, H, W); H, W
+        multiples of 8."""
+        x = x.to(self.dtype)
+        conv2 = self.conv2(self.conv1(x))
+        conv3 = self.conv3(max_pool_same(conv2))
+        conv4 = self.conv4(conv3)
+        conv5 = self.conv5(max_pool_same(conv4))
+        conv6 = self.conv6(conv5)
+        conv7 = self.conv7(max_pool_same(conv6))
+
+        deconv1 = self.deconv1(conv7)
+        deconv2 = self._join(self.deconv2(deconv1), conv6)
+        deconv3 = self._join(self.deconv3(deconv2), conv5)
+        deconv4 = self._join(self.deconv4(deconv3), conv3)
+        deconv5 = self._join(self.deconv5(deconv4), conv2)
+        return self.logits(deconv5).float()
+
+    def forward(self, image):
+        """(N, H, W, C) -> float32 logits (N, H, W, n_classes), like the
+        JAX module."""
+        return self.forward_nchw(image.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class FCNSkip(_FCNBase):
+    """fcn_skip: the default architecture, with skip concats."""
+
+    skips = True
+
+
+class FCN(_FCNBase):
+    """fcn: the same encoder, decoder without skip concats."""
+
+    skips = False

@@ -1,0 +1,1 @@
+"""ops of the PyTorch/CUDA port (mirrors page_segmentation_tpu.ops)."""

@@ -1,0 +1,104 @@
+"""The port stands alone: no module of page_segmentation_tpu_torch, and not
+chip_smoke.py, imports jax, flax or the JAX package; and its entry points
+run on the card by default, raising where there is none."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "page_segmentation_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "page_segmentation_tpu")
+SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_sources_import_nothing_of_jax(path):
+    for name in _imported_roots(path):
+        root = name.split(".")[0]
+        assert root not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+def test_importing_the_port_loads_no_jax():
+    modules = [
+        "page_segmentation_tpu_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
+        for p in sorted(PORT.rglob("*.py")) if p.name != "__init__.py"
+    ]
+    code = (
+        "import sys, importlib\n"
+        "import page_segmentation_tpu_torch\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                            capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr
+    assert result.stdout.startswith("ok")
+
+
+def _entry_points():
+    from page_segmentation_tpu_torch.core.colors import DEFAULT_IMAGE_MAP
+    from page_segmentation_tpu_torch.inference.pipeline import (
+        ThroughputPredictor,
+        make_fused_predict,
+    )
+    from page_segmentation_tpu_torch.models.fcn import FCNSkip
+    from page_segmentation_tpu_torch.ops import cuda_cc
+
+    ink = np.ones((8, 8), np.uint8)
+    return {
+        "ThroughputPredictor": lambda: ThroughputPredictor(
+            FCNSkip(3), None, DEFAULT_IMAGE_MAP.palette, (400, 296), 6 / 50),
+        "make_fused_predict": lambda: make_fused_predict(FCNSkip(3), (48, 36)),
+        "cc_min_label": lambda: cuda_cc.cc_min_label(ink),
+        "cc_min_label_batch": lambda: cuda_cc.cc_min_label_batch(ink[None]),
+        "cc_min_label_tiled": lambda: cuda_cc.cc_min_label_tiled(ink),
+        "cc_vote_batch": lambda: cuda_cc.cc_vote_batch(ink[None], ink[None], 3),
+    }
+
+
+@pytest.mark.parametrize("name", ["ThroughputPredictor", "make_fused_predict", "cc_min_label",
+                                  "cc_min_label_batch", "cc_min_label_tiled", "cc_vote_batch"])
+def test_default_device_is_cuda_and_raises_without_a_card(name):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    with pytest.raises(RuntimeError, match="cuda"):
+        _entry_points()[name]()
+
+
+def test_cpu_tensor_takes_the_plain_labeler(monkeypatch):
+    from page_segmentation_tpu_torch.ops import cuda_cc
+
+    def no_kernel(ink):
+        raise AssertionError("the CUDA kernel must not run for a CPU tensor")
+
+    monkeypatch.setattr(cuda_cc, "_label_cuda", no_kernel)
+    before = cuda_cc.launches
+    labels, _ = cuda_cc.cc_min_label_batch(np.ones((2, 4, 4), np.uint8), device="cpu")
+    assert (labels == 1).all() and cuda_cc.launches == before
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    from page_segmentation_tpu_torch.ops import cuda_cc
+
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_cc._label_cuda(torch.ones((1, 4, 4), dtype=torch.bool))
