@@ -6,12 +6,20 @@ NVIDIA card.
 
 Builds the port's CUDA kernels and host library from the sources in this
 checkout, holds every kernel against its plain PyTorch version on the card,
-checks the bf16 forward against float32, and drives the main path — the
-throughput predictor over synthetic 300-DPI A4 pages with the device
-cc-majority vote on the CUDA labeler — then checks what comes out.  Prints
-one line per phase, then a JSON line of per-kernel measurements, and as the
-last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
-line, when there is no card, when the package is missing, or when any phase
+checks the bf16 forward against float32, and drives three paths, each with
+the kernels' launch counts set to 0 just before it and read just after:
+
+* the throughput predictor over synthetic 300-DPI A4 pages with the device
+  cc-majority vote on the CUDA labeler;
+* the download-race tool (``tools/repro_download.py``) in both modes, which
+  must see no corrupt download in either arm;
+* the per-page library path: DatasetLoader -> PixelClassifier -> Predictor
+  ``predict_dataset_fast`` with the device vote, the trio written as PNGs.
+
+Then it checks what comes out.  Prints one line per phase, then a JSON line
+of per-kernel measurements, and as the last line
+``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
+when there is no card, when the package is missing, or when any phase
 fails.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -33,6 +41,10 @@ LARGE_PAGE = (6016, 4096)  # a page above the TPU's single-block size
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 TIMING_REPS = 10
+LIBRARY_PAGES = 20         # the per-page path: 2 full batches and a tail of 4
+LIBRARY_BATCH = 8
+LINE_HEIGHT = 50           # px per text line of the synthetic pages
+REPRO_TRIALS = 20
 DEVICE = "cuda"
 
 
@@ -123,6 +135,50 @@ def cuda_ms(fn, reps: int = TIMING_REPS, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def cuda_ms_per_call(fn, calls: int = 200, reps: int = 5) -> float:
+    """Median over ``reps`` of the milliseconds per call of ``calls``
+    back-to-back calls of ``fn`` between two CUDA events: for kernels
+    shorter than one launch."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def graph_ms_per_call(fn, calls: int = 200, reps: int = 5) -> float:
+    """Device milliseconds per call of ``fn``: ``calls`` calls captured in
+    one CUDA graph, replayed between two CUDA events, median over ``reps``
+    replays.  The host's launch cost stays out of the time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, before capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
 
 
@@ -271,7 +327,7 @@ def phase_main_path(state, pages, binaries):
         make_fused_predict,
     )
     from page_segmentation_tpu_torch.models.fcn import FCNSkip
-    from page_segmentation_tpu_torch.ops import cuda_cc
+    from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
 
     palette = DEFAULT_IMAGE_MAP.palette
     module = FCNSkip(3, dtype=torch.bfloat16)
@@ -286,12 +342,14 @@ def phase_main_path(state, pages, binaries):
     first = tp.execute_batch(tp.prep_batch(pages[:BATCH], binaries[:BATCH]))
     torch.cuda.synchronize()
 
-    cuda_cc.launches = 0
+    cuda_cc.launches = cuda_add_one.launches = 0
     t0 = time.perf_counter()
     outs = [tuple(a.copy() for a in trio) for trio in tp.run(pages, binaries, batch_size=BATCH)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = cuda_cc.launches
+    if cuda_add_one.launches:
+        raise AssertionError("add_one ran on the throughput path")
     n_batches = -(-N_PAGES // BATCH)
     log(f"phase main path: {N_PAGES} pages at batch {BATCH} in {wall:.3f} s = "
         f"{N_PAGES / wall:.2f} pages/s; cc_label launches {launches}")
@@ -310,7 +368,7 @@ def phase_main_path(state, pages, binaries):
     # the device vote == the host union-find vote on the card's unvoted labels
     dev = tp.device
     dec, ink = tp._prep(pages[:BATCH], binaries[:BATCH])
-    dec = tp._take(dec)
+    dec = tp.transfers.take(dec)
     ink_packed = torch.from_numpy(tp._pack_ink(ink)).to(dev)
     palette_dev = tp.palette_dev
     plain = make_fused_predict(module, (out_h, out_w), download="pred", device=dev)
@@ -343,7 +401,7 @@ def phase_main_path(state, pages, binaries):
     prepared = tp.prep_batch(pages[:BATCH], binaries[:BATCH])
     torch.cuda.synchronize()
     prep_ms = (time.perf_counter() - t0) * 1e3
-    dec_t, ink_t = tp._take(prepared[0]), tp._take(prepared[2])
+    dec_t, ink_t = tp.transfers.take(prepared[0]), tp.transfers.take(prepared[2])
     device_ms = cuda_ms(lambda: tp.fused(dec_t, palette_dev, ink_t), reps=5, warmup=1)
     downloaded = tp.fused(dec_t, palette_dev, ink_t).cpu().numpy()
     t0 = time.perf_counter()
@@ -352,6 +410,207 @@ def phase_main_path(state, pages, binaries):
     log(f"  stages per batch of {BATCH}: host prep+upload {prep_ms:.1f} ms, device program "
         f"{device_ms:.3f} ms, host finish {finish_ms:.1f} ms")
     return launches, tp
+
+
+def phase_repro_download():
+    """K3's kernel against its plain version at the tool's shape, timed
+    beside torch.add; then the download-race tool in both modes, on the
+    card, with no corrupt download allowed in any arm."""
+    from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
+    from page_segmentation_tpu_torch.tools import repro_download
+
+    dev = torch.device(DEVICE)
+    x = torch.from_numpy(repro_download.trial_input(np.random.RandomState(SEED))).to(dev)
+    x = x.to(torch.int32)
+    got, want = cuda_add_one.add_one(x, device=dev), cuda_add_one.add_one_reference(x)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if got.shape != want.shape or got.dtype != torch.int32 or err != 0:
+        raise AssertionError(f"add_one differs from its plain version (max |d| {err})")
+    kernel = {
+        "shape": list(x.shape),
+        "max_abs_err": err,
+        "ms": cuda_ms_per_call(lambda: cuda_add_one.add_one(x, device=dev)),
+        "plain_ms": cuda_ms_per_call(lambda: cuda_add_one.add_one_reference(x)),
+        "library_ms": cuda_ms_per_call(lambda: torch.add(x, 1)),
+        # 4 B read and 4 B written per element
+        "bound_ms": x.numel() * 8 / HBM_BYTES_PER_S * 1e3,
+        "graph_ms": graph_ms_per_call(lambda: cuda_add_one.add_one(x, device=dev)),
+        "plain_graph_ms": graph_ms_per_call(lambda: cuda_add_one.add_one_reference(x)),
+        "library_graph_ms": graph_ms_per_call(lambda: torch.add(x, 1)),
+    }
+    log(f"phase repro_download: add_one == plain at {tuple(x.shape)}; per call over 200 "
+        f"back-to-back launches: kernel {kernel['ms']:.5f} ms, plain {kernel['plain_ms']:.5f} ms, "
+        f"torch.add {kernel['library_ms']:.5f} ms; device time per call in a CUDA graph of 200: "
+        f"kernel {kernel['graph_ms']:.5f} ms, plain {kernel['plain_graph_ms']:.5f} ms, "
+        f"torch.add {kernel['library_graph_ms']:.5f} ms; byte bound {kernel['bound_ms']:.6f} ms")
+
+    launches = {}
+    for simple in (True, False):
+        mode = "simple" if simple else "real"
+        cuda_add_one.launches = cuda_cc.launches = 0
+        failures = repro_download.run(trials=REPRO_TRIALS, simple=simple, device=dev)
+        torch.cuda.synchronize()
+        launches[mode] = {"add_one": cuda_add_one.launches, "cc_label": cuda_cc.launches}
+        if any(failures.values()):
+            raise AssertionError(f"repro_download {mode} mode: corrupt downloads {failures}")
+    want_launches = {"simple": {"add_one": REPRO_TRIALS, "cc_label": 0},
+                     "real": {"add_one": 0, "cc_label": 3 * REPRO_TRIALS}}
+    if launches != want_launches:
+        raise AssertionError(f"repro_download launches {launches}, expected {want_launches}")
+    log(f"  repro_download: 0 corrupt downloads in {REPRO_TRIALS} trials x 2 arms x 2 modes; "
+        f"launches {launches}")
+    kernel["launches"] = launches["simple"]["add_one"]
+    kernel["cc_label_launches"] = launches["real"]["cc_label"]
+    return kernel
+
+
+def _pngs_decode_to(out_dir: str, name: str, arrays):
+    """The trio PNGs of one page decode, through zlib alone, to ``arrays``."""
+    import os
+
+    from page_segmentation_tpu_torch.core.image_io import decode_png_unfiltered
+
+    for category, want in zip(("color", "overlay", "inverted"), arrays):
+        with open(os.path.join(out_dir, category, name), "rb") as f:
+            decoded = decode_png_unfiltered(f.read())
+        if decoded is None:
+            raise AssertionError(f"{category}/{name} is not a filter-0 PNG")
+        pixels, palette = decoded
+        if palette is not None:
+            pixels = palette[pixels]
+        if not np.array_equal(pixels, want):
+            raise AssertionError(f"{category}/{name} does not decode to the yielded array")
+
+
+def phase_library(pages, binaries):
+    """The per-page library path at the full width of FCNSkip (3 classes,
+    weights init_params_numpy(3, SEED)) on LIBRARY_PAGES A4 pages: load,
+    predict_dataset_fast in bf16 with the device vote and the trio written,
+    then hold every product against the host's."""
+    import tempfile
+
+    from page_segmentation_tpu_torch.core.colors import DEFAULT_IMAGE_MAP
+    from page_segmentation_tpu_torch.data.dataset import SingleData
+    from page_segmentation_tpu_torch.data.loader import DatasetLoader
+    from page_segmentation_tpu_torch.inference.classifier import PixelClassifier
+    from page_segmentation_tpu_torch.inference.postprocess import (
+        cc_vote_on_device,
+        vote_connected_component_class,
+    )
+    from page_segmentation_tpu_torch.inference.predictor import Predictor, PredictSettings
+    from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
+    from page_segmentation_tpu_torch.ops.pad import pad_to
+
+    # the second dispatch of a batch must give the first one's labels
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    palette = DEFAULT_IMAGE_MAP.palette
+
+    t0 = time.perf_counter()
+    loader = DatasetLoader(target_line_height=6, color_map=DEFAULT_IMAGE_MAP, prediction=True)
+    dataset = loader.load_data([
+        SingleData(image=pages[i], binary=binaries[i], line_height_px=LINE_HEIGHT,
+                   output_path=f"page{i:02d}.png") for i in range(LIBRARY_PAGES)])
+    loader_s = time.perf_counter() - t0
+    shapes = {d.image.shape for d in dataset}
+    log(f"phase library: DatasetLoader prepared {LIBRARY_PAGES} A4 pages to {shapes} in "
+        f"{loader_s:.3f} s")
+    if shapes != {normalized_shapes()[0]}:
+        raise AssertionError(f"prepared shapes {shapes}")
+
+    bf16 = PixelClassifier(3, compute_dtype=torch.bfloat16, seed=SEED, device=DEVICE)
+    f32 = PixelClassifier(3, seed=SEED, device=DEVICE)
+    bucket = normalized_shapes()[1]
+
+    def batch(start):
+        chunk = dataset.data[start : start + LIBRARY_BATCH]
+        images = np.zeros((LIBRARY_BATCH,) + bucket, np.uint8)
+        bins = np.zeros_like(images)
+        for i, d in enumerate(chunk):
+            images[i], bins[i] = pad_to(d.image, bucket), pad_to(d.binary, bucket)
+        return chunk, images, bins
+
+    _, images0, bins0 = batch(0)
+    bf16.predict_batch_masks(images0, bins0, palette, device_vote=True)  # warm-up, not counted
+    torch.cuda.synchronize()
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_trio_")
+    settings = PredictSettings(n_classes=3, output=out_dir, color_map=DEFAULT_IMAGE_MAP,
+                               post_process=[vote_connected_component_class])
+    cuda_cc.launches = cuda_add_one.launches = 0
+    t0 = time.perf_counter()
+    results = list(Predictor(settings, network=bf16).predict_dataset_fast(
+        dataset, batch_size=LIBRARY_BATCH, write_output=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cuda_cc.launches
+    n_batches = -(-LIBRARY_PAGES // LIBRARY_BATCH)
+    log(f"  predict_dataset_fast: {LIBRARY_PAGES} pages at batch {LIBRARY_BATCH} (device vote, "
+        f"trio written) in {wall:.3f} s = {LIBRARY_PAGES / wall:.2f} pages/s; "
+        f"cc_label launches {launches}")
+    if launches != 3 * n_batches or cuda_add_one.launches:
+        raise AssertionError(f"cc_label launched {launches} times (expected {3 * n_batches}), "
+                             f"add_one {cuda_add_one.launches}")
+    if len(results) != LIBRARY_PAGES:
+        raise AssertionError(f"{len(results)} results for {LIBRARY_PAGES} pages")
+
+    # the device vote == the host vote on the same dispatch's unvoted labels
+    changed = 0
+    for start in range(0, LIBRARY_PAGES, LIBRARY_BATCH):
+        chunk, images, bins = batch(start)
+        unvoted, _ = bf16.predict_batch_masks(images, bins, palette)
+        for i, d in enumerate(chunk):
+            h, w = d.image.shape
+            host = vote_connected_component_class(unvoted[i], SingleData(binary=bins[i]))[:h, :w]
+            data, pred, *trio = results[start + i]
+            if pred.shape != (h, w) or not np.array_equal(pred, host):
+                raise AssertionError(f"{d.output_path}: device vote != host vote of the unvoted labels")
+            changed += int((host != unvoted[i, :h, :w]).sum())
+            _pngs_decode_to(out_dir, d.output_path, trio)
+    import shutil
+
+    shutil.rmtree(out_dir)
+    log(f"  device vote == host vote of the same dispatch's unvoted labels on {LIBRARY_PAGES} "
+        f"pages ({changed} px relabeled); the trio PNGs decode through zlib to the yielded arrays")
+
+    # the single-page path, and the fast path without the vote
+    plain = PredictSettings(n_classes=3, color_map=DEFAULT_IMAGE_MAP)
+    single32, single16 = Predictor(plain, network=f32), Predictor(plain, network=bf16)
+    single32.predict_single(dataset.data[0])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels32 = [single32.predict_single(d).labels for d in dataset]
+    single_ms = (time.perf_counter() - t0) * 1e3 / LIBRARY_PAGES
+    labels16 = [single16.predict_single(d).labels for d in dataset]
+    fast16 = [r[1] for r in Predictor(plain, network=bf16).predict_dataset_fast(dataset, LIBRARY_BATCH)]
+    fast32 = [r[1] for r in Predictor(plain, network=f32).predict_dataset_fast(dataset, LIBRARY_BATCH)]
+
+    def agreement(a, b):
+        return float(np.mean([np.mean(x == y) for x, y in zip(a, b)]))
+
+    same32, same16, mixed = agreement(fast32, labels32), agreement(fast16, labels16), agreement(fast16, labels32)
+    log(f"  predict_single float32: {single_ms:.3f} ms/page; fast vs single argmax agreement "
+        f"float32 {same32:.6f}, bf16 {same16:.6f}; bf16 fast vs float32 single {mixed:.6f} (reported)")
+    if same32 < 0.999 or same16 < 0.999:
+        raise AssertionError("the fast path disagrees with the single-page path")
+
+    # cc_vote_on_device on the prepared pages == the host vote
+    for d, pred in zip(dataset, labels32):
+        got = cc_vote_on_device(pred, d.binary, 3, device=DEVICE).cpu().numpy()
+        if not np.array_equal(got, vote_connected_component_class(pred, SingleData(binary=d.binary))):
+            raise AssertionError(f"{d.output_path}: cc_vote_on_device != host vote")
+    log(f"  cc_vote_on_device == host vote on {LIBRARY_PAGES} prepared pages")
+
+    # device time of one batch's dispatch (upload excluded)
+    x = torch.from_numpy(images0).to(DEVICE)
+    ink = torch.from_numpy(np.packbits(bins0 != 0, axis=-1)).to(DEVICE)
+    device_ms = cuda_ms(lambda: bf16.masks_device(x, ink, pack=True), reps=5, warmup=1)
+    log(f"  device program per batch of {LIBRARY_BATCH} at {bucket}: {device_ms:.3f} ms "
+        f"(normalize, bf16 FCNSkip, argmax, cc vote, 2-bit pack)")
+    return {"launches": launches, "pages_per_s": LIBRARY_PAGES / wall, "loader_s": loader_s,
+            "single_ms": single_ms, "device_ms": device_ms}
 
 
 def phase_profile(tp, pages, binaries):
@@ -421,6 +680,8 @@ def main(argv=None) -> int:
     launches, tp = phase_main_path(state, pages, binaries)
     if profile:
         phase_profile(tp, pages, binaries)
+    add_one = phase_repro_download()
+    library = phase_library(pages, binaries)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
@@ -437,7 +698,25 @@ def main(argv=None) -> int:
         "bound_ms": kernel["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "launches_by_path": {"throughput": launches, "library": library["launches"],
+                             "repro_download": add_one["cc_label_launches"]},
         "tiled": kernel["tiled"],
+    }, {
+        "name": "add_one",
+        "route": "cuda",
+        "source": "page_segmentation_tpu_torch/csrc/add_one.cu",
+        "replaces": "tools/repro_pallas_download.py:45",
+        "shape": add_one["shape"],
+        "launches": add_one["launches"],
+        "launches_by_path": {"throughput": 0, "library": 0, "repro_download": add_one["launches"]},
+        "max_abs_err": add_one["max_abs_err"],
+        "ms": add_one["ms"],
+        "plain_ms": add_one["plain_ms"],
+        "bound_ms": add_one["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": add_one["library_ms"],
+        "graph_ms": {"kernel": add_one["graph_ms"], "plain": add_one["plain_graph_ms"],
+                     "library": add_one["library_graph_ms"]},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

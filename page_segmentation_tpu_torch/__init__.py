@@ -1,39 +1,57 @@
 """page_segmentation_tpu_torch — the PyTorch/CUDA port of page_segmentation_tpu.
 
-The throughput predict path (host decimate -> device resample/normalize ->
-FCNSkip -> argmax -> cc-majority vote -> packed download -> host trio) runs
-on an NVIDIA Hopper card, with the connected-component labeling of the
-device vote in a hand-written CUDA kernel (``csrc/cc_label.cu``).  Module
-names mirror the JAX package so each counterpart is easy to find.
+Two predict paths run on an NVIDIA Hopper card:
+
+* the throughput path (host decimate -> device resample/normalize ->
+  FCNSkip -> argmax -> cc-majority vote -> packed download -> host trio),
+  ``ThroughputPredictor``;
+* the per-page library path (``DatasetLoader`` -> ``PixelClassifier`` ->
+  ``Predictor``, with the cc-majority vote fused into the batched dispatch).
+
+Both label connected components for the device vote with a hand-written
+CUDA kernel (``csrc/cc_label.cu``).  ``tools/repro_download.py`` checks that
+downloads come back whole under concurrent uploads, with the elementwise
+kernel ``csrc/add_one.cu``.  Module names mirror the JAX package so each
+counterpart is easy to find.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; a missing card raises rather than falling back.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 from .core.colors import ColorMap, DEFAULT_IMAGE_MAP  # noqa: F401
 from .device import resolve_device  # noqa: F401
 
+_LAZY = {
+    "FCN": ("page_segmentation_tpu_torch.models.fcn", "FCN"),
+    "FCNSkip": ("page_segmentation_tpu_torch.models.fcn", "FCNSkip"),
+    "Architecture": ("page_segmentation_tpu_torch.models.registry", "Architecture"),
+    "params_from_jax": ("page_segmentation_tpu_torch.models.bridge", "params_from_jax"),
+    "init_params_numpy": ("page_segmentation_tpu_torch.models.bridge", "init_params_numpy"),
+    "load_checkpoint": ("page_segmentation_tpu_torch.train.checkpoint", "load_checkpoint"),
+    "SingleData": ("page_segmentation_tpu_torch.data.dataset", "SingleData"),
+    "Dataset": ("page_segmentation_tpu_torch.data.dataset", "Dataset"),
+    "DatasetLoader": ("page_segmentation_tpu_torch.data.loader", "DatasetLoader"),
+    "PixelClassifier": ("page_segmentation_tpu_torch.inference.classifier", "PixelClassifier"),
+    "Predictor": ("page_segmentation_tpu_torch.inference.predictor", "Predictor"),
+    "PredictSettings": ("page_segmentation_tpu_torch.inference.predictor", "PredictSettings"),
+    "make_fused_predict": ("page_segmentation_tpu_torch.inference.pipeline", "make_fused_predict"),
+    "ThroughputPredictor": ("page_segmentation_tpu_torch.inference.pipeline", "ThroughputPredictor"),
+    "cc_min_label": ("page_segmentation_tpu_torch.ops.cuda_cc", "cc_min_label"),
+    "cc_min_label_batch": ("page_segmentation_tpu_torch.ops.cuda_cc", "cc_min_label_batch"),
+    "cc_vote_batch": ("page_segmentation_tpu_torch.ops.cuda_cc", "cc_vote_batch"),
+    "add_one": ("page_segmentation_tpu_torch.ops.cuda_add_one", "add_one"),
+    "native": ("page_segmentation_tpu_torch.native", None),
+}
+
 
 def __getattr__(name):
     # lazy exports keep `import page_segmentation_tpu_torch` light
-    lazy = {
-        "FCN": ("page_segmentation_tpu_torch.models.fcn", "FCN"),
-        "FCNSkip": ("page_segmentation_tpu_torch.models.fcn", "FCNSkip"),
-        "params_from_jax": ("page_segmentation_tpu_torch.models.bridge", "params_from_jax"),
-        "init_params_numpy": ("page_segmentation_tpu_torch.models.bridge", "init_params_numpy"),
-        "make_fused_predict": ("page_segmentation_tpu_torch.inference.pipeline", "make_fused_predict"),
-        "ThroughputPredictor": ("page_segmentation_tpu_torch.inference.pipeline", "ThroughputPredictor"),
-        "cc_min_label": ("page_segmentation_tpu_torch.ops.cuda_cc", "cc_min_label"),
-        "cc_min_label_batch": ("page_segmentation_tpu_torch.ops.cuda_cc", "cc_min_label_batch"),
-        "cc_vote_batch": ("page_segmentation_tpu_torch.ops.cuda_cc", "cc_vote_batch"),
-        "native": ("page_segmentation_tpu_torch.native", None),
-    }
-    if name in lazy:
+    if name in _LAZY:
         import importlib
 
-        module, attr = lazy[name]
+        module, attr = _LAZY[name]
         mod = importlib.import_module(module)
         return mod if attr is None else getattr(mod, attr)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

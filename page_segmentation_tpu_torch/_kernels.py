@@ -79,6 +79,7 @@ NVCC_FLAGS = (
 
 KERNELS: Dict[str, LibrarySpec] = {
     "cc_label": LibrarySpec("cc_label", _nvcc, NVCC_FLAGS, ("csrc/cc_label.cu",)),
+    "add_one": LibrarySpec("add_one", _nvcc, NVCC_FLAGS, ("csrc/add_one.cu",)),
 }
 
 _lock = threading.Lock()

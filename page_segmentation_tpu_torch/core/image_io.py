@@ -1,0 +1,208 @@
+"""Image reading and writing for the per-page predict path.
+
+Counterpart of the part of ``page_segmentation_tpu/core/image_io.py`` that
+the path uses: ``imread``, ``imread_bin``, ``encode_png``, ``imsave`` and
+``imsave_indexed``.  The writers need neither PIL nor cv2: PNGs are written
+here with filter-0 rows through ``zlib`` (8-bit gray, 8-bit RGB, and indexed
+at the smallest legal bit depth), and decode to the same pixels as the JAX
+package's writers.  The readers decode such non-interlaced filter-0 PNGs
+through ``zlib`` too (:func:`decode_png_unfiltered`) and hand every other
+file to PIL, imported where it is needed; PIL's pixel contract holds either
+way.
+"""
+from __future__ import annotations
+
+import struct
+import zlib
+from typing import Optional
+
+import numpy as np
+
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+
+
+def _pil_luma(rgb: np.ndarray) -> np.ndarray:
+    """PIL's convert('L'): fixed-point ITU-R 601-2 luma with round-half-up."""
+    r, g, b = (rgb[..., i].astype(np.uint32) for i in range(3))
+    return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(np.uint8)
+
+
+def _png_chunk(tag: bytes, payload: bytes) -> bytes:
+    return (struct.pack(">I", len(payload)) + tag + payload
+            + struct.pack(">I", zlib.crc32(tag + payload) & 0xFFFFFFFF))
+
+
+def _png_bytes(rows: np.ndarray, w: int, depth: int, color_type: int,
+               palette: Optional[np.ndarray] = None, level: int = 1) -> bytes:
+    """A non-interlaced PNG of packed ``rows`` (H, row bytes), each written
+    with filter 0."""
+    h = rows.shape[0]
+    raw = np.zeros((h, rows.shape[1] + 1), np.uint8)
+    raw[:, 1:] = rows
+    out = [_PNG_MAGIC,
+           _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, 0))]
+    if palette is not None:
+        out.append(_png_chunk(b"PLTE", np.ascontiguousarray(palette, np.uint8).tobytes()))
+    out.append(_png_chunk(b"IDAT", zlib.compress(raw.tobytes(), level)))
+    out.append(_png_chunk(b"IEND", b""))
+    return b"".join(out)
+
+
+def _unpack_msb(packed: np.ndarray, w: int, depth: int) -> np.ndarray:
+    """(H, row bytes) of sub-byte samples, MSB-first -> (H, w) uint8."""
+    k = 8 // depth
+    mask = np.uint8((1 << depth) - 1)
+    expanded = np.empty((packed.shape[0], packed.shape[1] * k), np.uint8)
+    for i in range(k):
+        expanded[:, i::k] = (packed >> np.uint8((k - 1 - i) * depth)) & mask
+    return np.ascontiguousarray(expanded[:, :w])
+
+
+def decode_png_unfiltered(data: bytes):
+    """(pixels, palette) of a non-interlaced PNG whose rows all carry filter
+    0: 8-bit gray (H, W), 1-bit gray expanded to 0/255, 8-bit RGB (H, W, 3),
+    or indexed at depth 1/2/4/8 (labels (H, W) with its (n, 3) palette;
+    palette None for the others).  None for any other PNG, and for bytes
+    that are not one (truncated or malformed input included)."""
+    if len(data) < 8 or data[:8] != _PNG_MAGIC:
+        return None
+    pos, header, palette, idat = 8, None, None, []
+    try:
+        while pos + 8 <= len(data):
+            (length,) = struct.unpack(">I", data[pos : pos + 4])
+            tag, payload = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + length]
+            pos += 12 + length
+            if tag == b"IHDR":
+                header = struct.unpack(">IIBBBBB", payload)
+            elif tag == b"PLTE":
+                palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
+            elif tag == b"IDAT":
+                idat.append(payload)
+            elif tag == b"IEND":
+                break
+        if header is None or not idat:
+            return None
+        w, h, depth, color_type, comp, filt, interlace = header
+        if (comp, filt, interlace) != (0, 0, 0):
+            return None
+        channels = {0: 1, 2: 3, 3: 1}.get(color_type)
+        allowed = {0: (1, 8), 2: (8,), 3: (1, 2, 4, 8)}.get(color_type, ())
+        if channels is None or depth not in allowed or (color_type == 3 and palette is None):
+            return None
+        stride = (w * channels * depth + 7) // 8
+        raw = zlib.decompress(b"".join(idat))
+        if len(raw) != h * (stride + 1):
+            return None
+        rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
+    except (struct.error, zlib.error, ValueError):
+        return None
+    if rows[:, 0].any():  # filtered rows: not this decoder's
+        return None
+    rows = rows[:, 1:]
+    if color_type == 2:
+        return np.ascontiguousarray(rows).reshape(h, w, 3), None
+    pixels = np.ascontiguousarray(rows[:, :w]) if depth == 8 else _unpack_msb(rows, w, depth)
+    if color_type == 0:
+        return (pixels * np.uint8(255) if depth == 1 else pixels), None
+    return pixels, palette
+
+
+def decode_image_bytes(data: bytes, as_gray: bool = False) -> np.ndarray:
+    """Decode in-memory image bytes to uint8: (H, W) when ``as_gray``, else
+    (H, W, 3) RGB; PIL's pixels for every format."""
+    fast = decode_png_unfiltered(data)
+    if fast is not None and fast[1] is not None and fast[0].size and fast[0].max() >= len(fast[1]):
+        fast = None  # indices past the palette: PIL defines their color
+    if fast is not None:
+        pixels, palette = fast
+        if palette is not None:
+            pixels = palette[pixels]
+        if pixels.ndim == 2:
+            return pixels if as_gray else np.stack([pixels] * 3, axis=-1)
+        return _pil_luma(pixels) if as_gray else pixels
+    import io
+
+    from PIL import Image
+
+    Image.MAX_IMAGE_PIXELS = None  # large historical scans
+    with Image.open(io.BytesIO(data)) as im:
+        if as_gray:
+            if im.mode not in ("L", "I;16", "I"):
+                im = im.convert("L")
+            arr = np.asarray(im)
+            if arr.dtype == np.uint16:
+                arr = (arr // 257).astype(np.uint8)
+            elif arr.dtype != np.uint8:  # 32-bit 'I' mode and friends
+                arr = np.clip(arr.astype(np.float64) / 257.0, 0, 255).astype(np.uint8)
+            return arr
+        return np.asarray(im.convert("RGB"))
+
+
+def imread(path, as_gray: bool = False) -> np.ndarray:
+    """Read an image as uint8; grayscale (H, W) when ``as_gray``."""
+    with open(str(path), "rb") as f:
+        return decode_image_bytes(f.read(), as_gray=as_gray)
+
+
+def imread_bin(path, binarize: bool = True, threshold: int = 128) -> np.ndarray:
+    """Read a binarized image as 0/255 uint8 (white background, black ink)."""
+    gray = imread(path, as_gray=True)
+    if not binarize:
+        return gray
+    return np.where(gray >= threshold, np.uint8(255), np.uint8(0))
+
+
+def _coerce_uint8(image: np.ndarray) -> np.ndarray:
+    image = np.asarray(image)
+    if image.dtype == bool:
+        return image.astype(np.uint8) * 255
+    if image.dtype != np.uint8:
+        return np.clip(image, 0, 255).astype(np.uint8)
+    return image
+
+
+def encode_png(image: np.ndarray) -> bytes:
+    """PNG bytes of a uint8 gray (H, W) or RGB (H, W, 3) array, filter-0
+    rows at zlib level 1."""
+    image = np.ascontiguousarray(_coerce_uint8(image))
+    if image.ndim == 2:
+        return _png_bytes(image, image.shape[1], 8, 0)
+    if image.ndim == 3 and image.shape[2] == 3:
+        return _png_bytes(image.reshape(image.shape[0], -1), image.shape[1], 8, 2)
+    raise ValueError(f"encode_png takes (H, W) gray or (H, W, 3) RGB, got {image.shape}")
+
+
+def imsave(path, image: np.ndarray) -> None:
+    """Write an image; PNGs through :func:`encode_png`, other formats
+    through PIL."""
+    if str(path).lower().endswith(".png"):
+        with open(str(path), "wb") as f:
+            f.write(encode_png(image))
+        return
+    from PIL import Image
+
+    Image.fromarray(_coerce_uint8(image)).save(path)
+
+
+def imsave_indexed(path, labels: np.ndarray, palette: np.ndarray) -> None:
+    """Write a label map as an indexed PNG at the smallest legal bit depth;
+    decoders recover ``palette[labels]``.  Non-uint8 labels and non-PNG
+    paths are written as the RGB image instead."""
+    labels = np.ascontiguousarray(labels)
+    palette = np.asarray(palette, np.uint8)
+    if labels.dtype != np.uint8 or not str(path).lower().endswith(".png"):
+        imsave(path, palette[labels])
+        return
+    h, w = labels.shape
+    n_entries = max(len(palette), int(labels.max()) + 1 if labels.size else 1)
+    depth = next(d for d in (1, 2, 4, 8) if n_entries <= 1 << d)
+    if depth == 8:
+        packed = labels
+    else:  # MSB-first, the PNG bit order
+        k = 8 // depth
+        padded = np.pad(labels, ((0, 0), (0, (-w) % k)))
+        packed = np.zeros((h, padded.shape[1] // k), np.uint8)
+        for i in range(k):
+            packed |= padded[:, i::k] << np.uint8((k - 1 - i) * depth)
+    with open(str(path), "wb") as f:
+        f.write(_png_bytes(packed, w, depth, 3, palette=palette))

@@ -1,0 +1,1 @@
+"""data of the PyTorch/CUDA port (mirrors page_segmentation_tpu.data)."""

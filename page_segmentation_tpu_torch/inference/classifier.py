@@ -1,0 +1,179 @@
+"""The network runtime of the per-page predict path: model build and load,
+the single-page forward, and the batched forward with the device vote.
+
+Counterpart of ``page_segmentation_tpu/inference/classifier.py``
+``PixelClassifier``.  Pages are padded bottom/right to a bucketed shape (a
+multiple of the architecture's stride factor) before the forward and the
+logits cropped back exactly.  PyTorch runs eagerly, so there is no
+per-shape compile cache: one module, in eval mode, under
+``torch.inference_mode()``.
+"""
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..data.dataset import SingleData
+from ..device import resolve_device
+from ..models.bridge import init_params_numpy, params_from_jax
+from ..models.registry import Architecture
+from ..ops.pad import bucket_shape, crop_to, pad_to
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class PixelClassifier:
+    """A torch module and its weights, serving the single-page and batched
+    forwards on ``device``.
+
+    ``variables`` (and ``params``) hold the weights in the JAX package's
+    layout, ``{"params": {layer: {"kernel", "bias"}}}`` of numpy arrays;
+    setting either loads them into the module.  Without ``model_path`` the
+    weights are ``models/bridge.py`` ``init_params_numpy(n_classes, seed)``
+    (numpy's generator: not the JAX package's random init).
+    """
+
+    def __init__(
+        self,
+        n_classes: int,
+        architecture: Architecture = Architecture.FCN_SKIP,
+        model_path: Optional[str] = None,
+        compute_dtype=torch.float32,
+        bucket_granularity: int = 1,
+        seed: int = 0,
+        s2d_stem: bool = False,
+        int8: bool = False,
+        device="cuda",
+    ):
+        if int8:
+            raise NotImplementedError("int8 inference is not ported yet: ROADMAP queue 1 item 13")
+        self.device = resolve_device(device)
+        self.n_classes = n_classes
+        self.compute_dtype = _DTYPES.get(compute_dtype, compute_dtype)
+        self.bucket_granularity = bucket_granularity
+        self.s2d_stem = s2d_stem
+        self._variables = None
+        self._rebuild(architecture)
+        if model_path:
+            self.load(model_path)
+        else:
+            self.init_params(seed)
+
+    # ----------------------------------------------------------- properties
+    @property
+    def variables(self):
+        return self._variables
+
+    @variables.setter
+    def variables(self, value):
+        if "params" not in value:
+            value = {"params": value}
+        self.module.load_state_dict(params_from_jax(value["params"]))
+        self._variables = dict(value)
+
+    @property
+    def params(self):
+        return self._variables["params"]
+
+    @params.setter
+    def params(self, value):
+        self.variables = {**(self._variables or {}), "params": value}
+
+    # ----------------------------------------------------------- params I/O
+    def init_params(self, seed: int = 0) -> None:
+        skips = self.architecture is Architecture.FCN_SKIP
+        self.variables = {"params": init_params_numpy(self.n_classes, seed, skips=skips)}
+
+    def _rebuild(self, architecture: Architecture) -> None:
+        self.architecture = architecture
+        module = architecture.model(self.n_classes, dtype=self.compute_dtype, s2d_stem=self.s2d_stem)
+        self.module = module.to(self.device).eval()
+        self.preprocess, self.rgb = architecture.preprocess()
+        if self._variables is not None:
+            self.variables = self._variables
+
+    def load(self, path: str) -> None:
+        """A checkpoint directory (``params.msgpack`` + ``meta.json``);
+        ``meta["architecture"]`` rebuilds the module."""
+        path = str(path)
+        if path.endswith(".h5"):
+            meta_path = path[:-3] + ".meta"
+            if os.path.exists(path) or os.path.exists(meta_path):
+                raise NotImplementedError(
+                    "Keras .h5 and TF1 .meta checkpoints are not ported yet: ROADMAP queue 1 item 10")
+            raise FileNotFoundError(f"No checkpoint at {path}")
+        from ..train.checkpoint import load_checkpoint
+
+        variables, meta = load_checkpoint(path)
+        arch = meta.get("architecture")
+        if arch:
+            self._variables = None
+            self._rebuild(Architecture(arch))
+        self.variables = variables
+
+    # -------------------------------------------------------------- forward
+    def _prepare_input(self, image: np.ndarray) -> Tuple[np.ndarray, Tuple[int, int]]:
+        """Preprocess + pad one image to its bucket: HWC float32."""
+        arr = np.asarray(self.preprocess(np.asarray(image, dtype=np.float32)), dtype=np.float32)
+        if arr.ndim == 2:
+            arr = arr[..., None]
+        orig_hw = arr.shape[:2]
+        target = bucket_shape(orig_hw, self.architecture.stride_factor, self.bucket_granularity)
+        return pad_to(arr, target), orig_hw
+
+    def predict_single_data(self, data: SingleData):
+        """(logit, prob, pred) numpy arrays for one page."""
+        from scipy.special import softmax
+
+        arr, orig_hw = self._prepare_input(data.image)
+        with torch.inference_mode():
+            logits = self.module(torch.from_numpy(arr[None]).to(self.device))
+        logit = crop_to(logits[0].cpu().numpy(), orig_hw)
+        return logit, softmax(logit, -1), np.argmax(logit, -1)
+
+    def masks_device(self, images: torch.Tensor, ink: Optional[torch.Tensor], pack: bool):
+        """The batched dispatch on the device: (N, H, W) uint8 pages ->
+        normalize, forward, argmax, then (``ink`` given: (N, H, W // 8)
+        MSB-first bits, or (N, H, W) uint8) the cc-majority vote, and the
+        class map as (N, H, W // 4) 2-bit codes (``pack``) or (N, H, W)
+        uint8."""
+        from ..ops.cuda_cc import cc_vote_batch
+        from .output import pack_classes_device, unpack_bits_device
+
+        with torch.inference_mode():
+            x = self.architecture.device_preprocess()(images.to(torch.float32)[:, None])
+            pred = self.module.forward_nchw(x).argmax(dim=1).to(torch.uint8)
+            if ink is not None:
+                mask = unpack_bits_device(ink) if ink.shape[-1] * 8 == pred.shape[-1] else ink != 0
+                pred = cc_vote_batch(pred, mask, n_classes=self.n_classes, device=pred.device)
+            return pack_classes_device(pred) if pack else pred
+
+    def predict_batch_masks(self, images: np.ndarray, binaries: np.ndarray,
+                            palette: np.ndarray, device_vote: bool = False):
+        """Batched forward + argmax of prepared pages of one bucket shape.
+
+        images: (N, H, W) uint8; binaries: (N, H, W) uint8, 1 = ink.
+        Returns host arrays (pred (N, H, W) uint8, masks (3, N, H, W, 3)
+        uint8 = [color, overlay, inverted]).  The pages go up as uint8 and
+        are normalized on the device; the class map comes back 2-bit packed
+        when n_classes <= 4 and W % 4 == 0, and the trio is built on the
+        host from the binary.  ``device_vote`` votes each ink component's
+        majority class on the device before the download (the ink goes up
+        1-bit packed when W % 8 == 0) with the CUDA labeler on the card."""
+        from .output import finish_mask_trio, pack_bits_host, unpack_classes
+
+        palette = np.ascontiguousarray(palette, np.uint8)
+        pack = self.n_classes <= 4 and images.shape[2] % 4 == 0
+        ink = (binaries != 0).astype(np.uint8)
+        ink_dev = None
+        if device_vote:
+            ink_up = pack_bits_host(ink) if images.shape[2] % 8 == 0 else ink
+            ink_dev = torch.from_numpy(ink_up).to(self.device)
+        x = torch.from_numpy(np.ascontiguousarray(images, np.uint8)).to(self.device)
+        downloaded = self.masks_device(x, ink_dev, pack).cpu().numpy()
+        pred = unpack_classes(downloaded) if pack else downloaded
+        return pred, np.stack(finish_mask_trio(pred, ink, palette))
+

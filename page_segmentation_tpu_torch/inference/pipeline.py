@@ -128,6 +128,63 @@ class _Staged(NamedTuple):
     ready: Optional[torch.cuda.Event]
 
 
+class DeviceTransfers:
+    """The pipeline's host<->device copies on ``device``.  On the card an
+    upload copies into pinned memory, then runs as a non-blocking copy on a
+    side stream followed by an event; a download is a non-blocking copy into
+    pinned memory on the current stream followed by an event.  On the CPU
+    both hand the tensor through.  ``tools/repro_download.py`` races these
+    same calls against each other."""
+
+    def __init__(self, device):
+        self.device = resolve_device(device)
+        self._upload_stream = (
+            torch.cuda.Stream(device=self.device) if self.device.type == "cuda" else None
+        )
+
+    def put(self, arr: np.ndarray) -> _Staged:
+        """Start the upload of a host array.  PyTorch's pinned-memory cache
+        keeps the pinned block out of reuse until the copy has completed."""
+        host = torch.from_numpy(np.ascontiguousarray(arr))
+        if self._upload_stream is None:
+            return _Staged(host, None)
+        pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        pinned.copy_(host)
+        with torch.cuda.stream(self._upload_stream):
+            tensor = pinned.to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._upload_stream)
+        return _Staged(tensor, ready)
+
+    def take(self, staged: _Staged) -> torch.Tensor:
+        """The uploaded tensor, ordered on the current stream after its copy
+        (and kept from reuse by the allocator until that stream is done)."""
+        if staged.ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(staged.ready)
+            staged.tensor.record_stream(stream)
+        return staged.tensor
+
+    def start_download(self, out: torch.Tensor):
+        """Queue the device-to-host copy of ``out`` on the current stream
+        (after whatever computed it) and record an event after it."""
+        if self._upload_stream is None:
+            return out, None
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return host, done
+
+    @staticmethod
+    def wait_download(download) -> np.ndarray:
+        """The downloaded array, once the copy's event has completed."""
+        host, done = download
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
+
+
 class ThroughputPredictor:
     """Pipelined batch predictor for same-sized full-resolution pages.
 
@@ -158,7 +215,8 @@ class ThroughputPredictor:
     ):
         if int8:
             raise NotImplementedError("int8 serving is not ported yet")
-        self.device = resolve_device(device)
+        self.transfers = DeviceTransfers(device)
+        self.device = self.transfers.device
         in_h, in_w = page_shape
         self.host_decimate = host_decimate
         # default vote placement: the native host vote inside the overlapped
@@ -209,36 +267,8 @@ class ThroughputPredictor:
         self.packed_binary = bool(packed_binary)
         self._col_bytes = self.col_idx >> 3
         self._col_shift = (7 - (self.col_idx & 7)).astype(np.uint8)
-        self._upload_stream = (
-            torch.cuda.Stream(device=self.device) if self.device.type == "cuda" else None
-        )
 
     # ------------------------------------------------------------ host steps
-    def _put(self, arr: np.ndarray) -> _Staged:
-        """Start the upload of a host batch.  On the card: copy into pinned
-        memory, then a non-blocking copy on the upload stream, followed by
-        an event.  PyTorch's pinned-memory cache keeps the pinned block out
-        of reuse until that copy has completed."""
-        host = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type != "cuda":
-            return _Staged(host, None)
-        pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-        pinned.copy_(host)
-        with torch.cuda.stream(self._upload_stream):
-            tensor = pinned.to(self.device, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(self._upload_stream)
-        return _Staged(tensor, ready)
-
-    def _take(self, staged: _Staged) -> torch.Tensor:
-        """The uploaded tensor, ordered on the current stream after its copy
-        (and kept from reuse by the allocator until that stream is done)."""
-        if staged.ready is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(staged.ready)
-            staged.tensor.record_stream(stream)
-        return staged.tensor
-
     def _gather_ink_bits(self, packed: np.ndarray) -> np.ndarray:
         """Ink mask from bit-packed binaries (N, H, ceil(W/8)): ink = bit 0
         (PNG black), sampled at the nearest grid."""
@@ -252,9 +282,9 @@ class ThroughputPredictor:
 
         dec = native.decimate_u8(pages, self.host_decimate)
         if self.packed_binary:
-            return self._put(dec), self._gather_ink_bits(binaries)
+            return self.transfers.put(dec), self._gather_ink_bits(binaries)
         ink = native.gather_ink(binaries, self.row_idx, self.col_idx)
-        return self._put(dec), ink.astype(bool)
+        return self.transfers.put(dec), ink.astype(bool)
 
     def _out_bufs(self, n: int, h: int, w: int):
         """Ring of trio buffers sized to the in-flight window (depth + the
@@ -331,28 +361,15 @@ class ThroughputPredictor:
 
     def _dispatch(self, prepared) -> torch.Tensor:
         dec, _, ink_staged = prepared
+        take = self.transfers.take
         if ink_staged is not None:
-            return self.fused(self._take(dec), self.palette_dev, self._take(ink_staged))
-        return self.fused(self._take(dec), self.palette_dev)
-
-    def _start_download(self, out: torch.Tensor):
-        """Queue the device-to-host copy of a dispatch's output on the
-        current stream (after the dispatch) and record an event after it."""
-        if self.device.type != "cuda":
-            return out, None
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
-        return host, done
+            return self.fused(take(dec), self.palette_dev, take(ink_staged))
+        return self.fused(take(dec), self.palette_dev)
 
     def _download_finish(self, download, ink: np.ndarray):
         """Wait for the copy's event, then build the host trio; runs on the
         downloader thread in run()."""
-        host, done = download
-        if done is not None:
-            done.synchronize()
-        return self._finish(host.numpy(), ink)
+        return self._finish(self.transfers.wait_download(download), ink)
 
     # -------------------------------------------------------------- pipeline
     # run() pipelines a whole corpus internally; a serving engine pipelines
@@ -363,7 +380,7 @@ class ThroughputPredictor:
         another thread than execute_batch."""
         vote = self.cc_vote in ("xla", "pallas")
         dec, ink = self._prep(pages, binaries)
-        ink_staged = self._put(self._pack_ink(ink)) if vote else None
+        ink_staged = self.transfers.put(self._pack_ink(ink)) if vote else None
         return dec, ink, ink_staged
 
     def prep_pages(self, pages, binaries, n_pad: int):
@@ -381,14 +398,14 @@ class ThroughputPredictor:
                 ink[i] = self._gather_ink_bits(binary[None])[0]
             else:
                 ink[i] = native.gather_ink(binary[None], self.row_idx, self.col_idx)[0]
-        ink_staged = self._put(self._pack_ink(ink)) if vote else None
-        return self._put(dec), ink, ink_staged
+        ink_staged = self.transfers.put(self._pack_ink(ink)) if vote else None
+        return self.transfers.put(dec), ink, ink_staged
 
     def execute_batch(self, prepared):
         """Stage 2, device + finish: dispatch, download, host vote/trio.
         Returns what one run() iteration would yield."""
         out = self._dispatch(prepared)
-        return self._download_finish(self._start_download(out), prepared[1])
+        return self._download_finish(self.transfers.start_download(out), prepared[1])
 
     def run(self, pages: np.ndarray, binaries: np.ndarray, batch_size: int = 16,
             depth: int = 2):
@@ -400,9 +417,11 @@ class ThroughputPredictor:
 
         The JAX package runs the ``cc_vote="pallas"`` case fully serialized
         because its TPU runtime corrupted the download of a Pallas-bearing
-        program under concurrent device traffic; CUDA streams have no such
-        fault, so every vote placement keeps the overlap here (the outputs
-        are the same)."""
+        program under concurrent device traffic.  ``tools/repro_download.py``
+        checks that pattern on the card with this class's own transfers
+        (side-stream pinned uploads racing an event-fenced download of the
+        CUDA labeler's vote) and finds no corrupt download, so every vote
+        placement keeps the overlap here (the outputs are the same)."""
         self._ring_len = max(4, max(depth, 1) + 2)
         n = pages.shape[0]
         starts = list(range(0, n, batch_size))
@@ -421,7 +440,7 @@ class ThroughputPredictor:
                 prepared = next_prep.result()
                 if index + 1 < len(starts):
                     next_prep = prefetch.submit(prep, starts[index + 1])
-                download = self._start_download(self._dispatch(prepared))
+                download = self.transfers.start_download(self._dispatch(prepared))
                 pending.append(
                     downloader.submit(self._download_finish, download, prepared[1])
                 )

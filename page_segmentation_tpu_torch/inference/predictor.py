@@ -1,0 +1,168 @@
+"""Prediction orchestration of the per-page library path.
+
+Counterpart of ``page_segmentation_tpu/inference/predictor.py``:
+``Prediction``, ``PredictSettings`` and ``Predictor`` with ``predict``,
+``predict_single``, ``predict_masks``, ``save_prediction`` and the batched
+``predict_dataset_fast``, which groups pages by bucket shape, runs each
+batch through ``PixelClassifier.predict_batch_masks`` (with the device
+cc-vote when the lone post-processor is the cc-majority vote) and yields
+``(data, pred, color, overlay, inverted)`` per page.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Callable, Generator, List, NamedTuple, Optional
+
+import numpy as np
+
+from ..core.colors import ColorMap
+from ..data.dataset import Dataset, SingleData, entry_shape, materialize
+from ..ops.pad import bucket_shape, pad_to
+from .classifier import PixelClassifier
+from .output import Masks, generate_output_masks, output_data, scale_to_original_shape
+
+
+class Prediction(NamedTuple):
+    labels: np.ndarray
+    probabilities: np.ndarray
+    data: SingleData
+
+
+@dataclass
+class PredictSettings:
+    network: Optional[str] = None
+    output: Optional[str] = None
+    high_res_output: bool = False
+    color_map: Optional[ColorMap] = None
+    n_classes: int = -1
+    post_process: Optional[List[Callable[[np.ndarray, SingleData], np.ndarray]]] = None
+    gpu_allow_growth: bool = False  # accepted for the API's sake
+    compute_dtype: str = "float32"
+    bucket_granularity: int = 1
+    # fuse a lone cc-majority post-processor into the batched dispatch
+    # (device labeler + histogram vote); None = on when the network runs on
+    # a CUDA device
+    device_post_process: Optional[bool] = None
+    s2d_stem: bool = False
+    int8: bool = False
+    # spatial partitioning over several devices and single-device row
+    # banding: not ported (ROADMAP queue 1 item 12)
+    n_devices: Optional[int] = None
+    spatial_threshold: int = 16_000_000
+    band_rows: Optional[int] = None
+
+
+class Predictor:
+    def __init__(self, settings: PredictSettings, network: Optional[PixelClassifier] = None,
+                 device="cuda"):
+        if (settings.n_devices and settings.n_devices > 1) or settings.band_rows:
+            raise NotImplementedError(
+                "n_devices > 1 (spatial partitioning) and band_rows (banded forward) are "
+                "not ported yet: ROADMAP queue 1 item 12")
+        self.settings = settings
+        self.network = network
+        if not network:
+            self.network = PixelClassifier(
+                n_classes=settings.n_classes,
+                model_path=os.path.abspath(settings.network),
+                compute_dtype=settings.compute_dtype,
+                bucket_granularity=settings.bucket_granularity,
+                s2d_stem=settings.s2d_stem,
+                int8=settings.int8,
+                device=device,
+            )
+        if settings.output:
+            for category in ("overlay", "color", "inverted"):
+                os.makedirs(os.path.join(settings.output, category), exist_ok=True)
+
+    def predict(self, dataset: Dataset) -> Generator[Prediction, None, None]:
+        for data in dataset.data:
+            yield self.predict_single(data)
+
+    def predict_single(self, data: SingleData) -> Prediction:
+        data = materialize([data])[0]  # a lazy entry -> a loaded copy
+        _, prob, pred = self.network.predict_single_data(data)
+        if self.settings.high_res_output:
+            data, pred = scale_to_original_shape(data, pred)
+        for processor in self.settings.post_process or []:
+            pred = processor(pred, data)
+        return Prediction(pred, prob, data)
+
+    def predict_masks(self, data: SingleData) -> Masks:
+        prediction = self.predict_single(data)
+        return generate_output_masks(prediction.data, prediction.labels, self.settings.color_map)
+
+    def save_prediction(self, prediction: Prediction) -> None:
+        output_data(self.settings.output, prediction.labels, prediction.data, self.settings.color_map)
+
+    # ------------------------------------------------------------ fast path
+    def predict_dataset_fast(self, dataset: Dataset, batch_size: int = 8,
+                             write_output: bool = False):
+        """Batched prediction: pages grouped by bucket shape, padded to
+        (batch, H, W), one dispatch per batch, cropped back; yields
+        (data, pred, color, overlay, inverted) per page."""
+        from .postprocess import vote_connected_component_class
+
+        color_map = self.settings.color_map or (dataset.color_map if dataset else None)
+        palette = color_map.palette if color_map else np.zeros((self.network.n_classes, 3), np.uint8)
+
+        post = self.settings.post_process or []
+        device_vote = self.settings.device_post_process
+        if device_vote is None:
+            device_vote = self.network.device.type == "cuda"
+        # high_res_output post-processes at the original scale, after the
+        # upscale, where the vote at the prepared scale is not the same
+        device_vote = (bool(device_vote) and post == [vote_connected_component_class]
+                       and not self.settings.high_res_output)
+        host_post = None if device_vote else (post or None)
+
+        groups = {}
+        for data in dataset.data:
+            shape = bucket_shape(entry_shape(data), self.network.architecture.stride_factor,
+                                 self.network.bucket_granularity)
+            groups.setdefault(shape, []).append(data)
+
+        for shape, members in groups.items():
+            for start in range(0, len(members), batch_size):
+                chunk = materialize(members[start : start + batch_size])
+                n = len(chunk)
+                # a ragged tail pads to the full batch (zero pages, cropped
+                # below); a group smaller than a batch pads to a power of two
+                n_padded = (batch_size if len(members) > batch_size
+                            else min(batch_size, 1 << max(0, n - 1).bit_length()))
+                images = np.zeros((n_padded,) + shape, dtype=np.uint8)
+                binaries = np.zeros((n_padded,) + shape, dtype=np.uint8)
+                for i, d in enumerate(chunk):
+                    images[i] = pad_to(d.image, shape)
+                    binaries[i] = pad_to(d.binary, shape)
+                pred_h, (color_h, overlay_h, inverted_h) = self.network.predict_batch_masks(
+                    images, binaries, palette, device_vote=device_vote)
+                for i, d in enumerate(chunk):
+                    h, w = d.image.shape[:2]
+                    pred_i = pred_h[i, :h, :w]
+                    if self.settings.high_res_output:
+                        d, pred_i = scale_to_original_shape(d, pred_i)
+                    if host_post or self.settings.high_res_output:
+                        # the label map changed: rebuild the trio from it
+                        for post_fn in host_post or []:
+                            pred_i = post_fn(pred_i, d)
+                        masks = generate_output_masks(d, pred_i, color_map)
+                        result = (d, pred_i, masks.color, masks.overlay, masks.inverted_overlay)
+                    else:
+                        result = (d, pred_i, color_h[i, :h, :w], overlay_h[i, :h, :w],
+                                  inverted_h[i, :h, :w])
+                    if write_output and self.settings.output:
+                        self._write_trio(d, pred_i, palette, result)
+                    yield result
+
+    def _write_trio(self, d: SingleData, pred: np.ndarray, palette: np.ndarray, result) -> None:
+        """The color product as an indexed PNG of the final labels, overlay
+        and inverted as RGB PNGs."""
+        from ..core.image_io import imsave, imsave_indexed
+
+        filename = d.output_path or os.path.basename(d.image_path or "page.png")
+        out = self.settings.output
+        imsave_indexed(os.path.join(out, "color", filename), pred, palette)
+        imsave(os.path.join(out, "overlay", filename), result[3])
+        imsave(os.path.join(out, "inverted", filename), result[4])

@@ -6,8 +6,7 @@ kernels ``(kh, kw, out, in)``.  Both map to torch's layout (conv
 ``(out, in, kh, kw)``, conv-transpose ``(in, out, kh, kw)``) by
 ``transpose(3, 2, 0, 1)``.
 
-Reading ``params.msgpack`` checkpoints needs flax's serializer and waits
-for a later slice; callers pass the tree as numpy arrays.
+Checkpoints (``params.msgpack``) are read by ``train/checkpoint.py``.
 """
 from __future__ import annotations
 
@@ -38,25 +37,31 @@ def params_from_jax(tree: Mapping[str, Mapping[str, np.ndarray]]) -> Dict[str, t
     return state
 
 
-def _layer_shapes(n_classes: int, in_channels: int = 1) -> Dict[str, Tuple[int, ...]]:
-    """FCNSkip kernel shapes in the JAX layout."""
+# decoder input widths of FCN, which joins no skip maps
+_DECODER_PLAIN_IN = {"deconv3": 60, "deconv4": 40, "deconv5": 30}
+
+
+def _layer_shapes(n_classes: int, in_channels: int = 1,
+                  skips: bool = True) -> Dict[str, Tuple[int, ...]]:
+    """FCNSkip (``skips``) or FCN kernel shapes in the JAX layout."""
     shapes = {}
     for name, cin, cout in _ENCODER:
         shapes[name] = (5, 5, in_channels if name == "conv1" else cin, cout)
     for name, cin, cout, k in _DECODER_SKIP:
+        cin = cin if skips else _DECODER_PLAIN_IN.get(name, cin)
         shapes[name] = (k, k, cout, cin)  # Keras transpose layout (kh, kw, out, in)
-    shapes["logits"] = (1, 1, 50, n_classes)
+    shapes["logits"] = (1, 1, 50 if skips else 20, n_classes)
     return shapes
 
 
-def init_params_numpy(n_classes: int, seed: int, in_channels: int = 1):
-    """Random FCNSkip params in the JAX layout: glorot-uniform kernels (fan
-    in/out over the receptive field, as flax's initializer with the
-    transpose layers' in_axis=3/out_axis=2) and zero biases, drawn from a
-    ``numpy.random.Generator`` seeded with ``seed``."""
+def init_params_numpy(n_classes: int, seed: int, in_channels: int = 1, skips: bool = True):
+    """Random FCNSkip (``skips``) or FCN params in the JAX layout:
+    glorot-uniform kernels (fan in/out over the receptive field, as flax's
+    initializer with the transpose layers' in_axis=3/out_axis=2) and zero
+    biases, drawn from a ``numpy.random.Generator`` seeded with ``seed``."""
     rng = np.random.default_rng(seed)
     tree = {}
-    for name, shape in _layer_shapes(n_classes, in_channels).items():
+    for name, shape in _layer_shapes(n_classes, in_channels, skips).items():
         kh, kw, a, b = shape
         fan_sum = (a + b) * kh * kw  # fan_in + fan_out, either layout
         limit = np.sqrt(6.0 / fan_sum)

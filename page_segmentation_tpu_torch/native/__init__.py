@@ -23,9 +23,11 @@ NATIVE_SPEC = LibrarySpec(
 
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _int = ctypes.c_int
 
 _SIGNATURES = {
+    "ps_cc_with_stats": (_int, [_u8p, _int, _int, _int, _i32p, _i32p, _f64p, _int]),
     "ps_cc_vote": (_int, [_u8p, _int, _int, _int, _i32p]),
     "ps_decimate_u8": (None, [_u8p, _int, _int, _int, _int, _u8p]),
     "ps_gather_ink": (None, [_u8p, _int, _int, _int, _i32p, _int, _i32p, _int, _u8p]),
@@ -45,6 +47,28 @@ def get_lib() -> ctypes.CDLL:
             fn.argtypes = argtypes
         lib._ps_typed = True
     return lib
+
+
+def cc_with_stats(image: np.ndarray, connectivity: int = 4):
+    """cv2.connectedComponentsWithStats of the nonzero pixels of one (H, W)
+    image: (num_labels, int32 labels, (n, 5) int32 stats, (n, 2) float64
+    centroids)."""
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
+    img = np.ascontiguousarray((np.asarray(image) != 0).astype(np.uint8))
+    if img.ndim != 2:
+        raise ValueError(f"image must be (H, W), got {img.shape}")
+    h, w = img.shape
+    labels = np.empty((h, w), np.int32)
+    # 4-connected components are at most ceil(h*w/2) (a checkerboard); an
+    # 8-connected one is at least as large
+    max_labels = h * w // 2 + 2
+    stats = np.empty((max_labels, 5), np.int32)
+    centroids = np.empty((max_labels, 2), np.float64)
+    n = get_lib().ps_cc_with_stats(img, h, w, connectivity, labels, stats, centroids, max_labels)
+    if n < 0:
+        raise RuntimeError(f"ps_cc_with_stats: more than {max_labels} components")
+    return n, labels, stats[:n].copy(), centroids[:n].copy()
 
 
 def cc_vote(binary: np.ndarray, pred: np.ndarray, n_classes: int) -> np.ndarray:

@@ -1,6 +1,7 @@
-// Host C functions of the throughput predict path (inference/pipeline.py):
-// box decimation, the ink gather, the color/overlay/inverted trio from a
-// raw or 2-bit packed class map, and the 4-connected cc-majority vote
+// Host C functions of the predict paths (inference/pipeline.py,
+// inference/postprocess.py, ops/cc.py): box decimation, the ink gather, the
+// color/overlay/inverted trio from a raw or 2-bit packed class map, the
+// 4-connected cc-majority vote, and connected components with stats
 // (union-find labeling with raster-order numbering).  These run on the
 // host, GIL-free through ctypes; they are not device kernels.
 //
@@ -42,9 +43,11 @@ struct UnionFind {
     }
 };
 
-// First pass: provisional labels + merges.  Second pass: flatten and
-// renumber components 1..n-1 in raster order of first occurrence.
-int label_image(const uint8_t* img, int h, int w, int32_t* labels) {
+// First pass: provisional labels + merges (4- or 8-connected).  Second
+// pass: flatten and renumber components 1..n-1 in raster order of first
+// occurrence, as cv2's connectedComponents numbers them.
+int label_image(const uint8_t* img, int h, int w, int connectivity,
+                int32_t* labels) {
     const size_t size = static_cast<size_t>(h) * w;
     std::vector<int32_t> provisional(size, 0);
     UnionFind uf(1024);
@@ -57,9 +60,21 @@ int label_image(const uint8_t* img, int h, int w, int32_t* labels) {
             if (!row[x]) continue;
             int32_t label = 0;
             if (x > 0 && prow[x - 1]) label = prow[x - 1];
-            if (y > 0 && prev[x]) {
-                if (label && label != prev[x]) uf.unite(label, prev[x]);
-                label = label ? std::min(label, prev[x]) : prev[x];
+            if (y > 0) {
+                if (prev[x]) {
+                    if (label && label != prev[x]) uf.unite(label, prev[x]);
+                    label = label ? std::min(label, prev[x]) : prev[x];
+                }
+                if (connectivity == 8) {
+                    if (x > 0 && prev[x - 1]) {
+                        if (label && label != prev[x - 1]) uf.unite(label, prev[x - 1]);
+                        label = label ? std::min(label, prev[x - 1]) : prev[x - 1];
+                    }
+                    if (x + 1 < w && prev[x + 1]) {
+                        if (label && label != prev[x + 1]) uf.unite(label, prev[x + 1]);
+                        label = label ? std::min(label, prev[x + 1]) : prev[x + 1];
+                    }
+                }
             }
             if (!label) label = uf.add();
             prow[x] = label;
@@ -128,6 +143,49 @@ void finish_pages(ClsAt cls_at, const uint8_t* cls_rows, const uint8_t* ink,
 }  // namespace
 
 extern "C" {
+
+// cv2.connectedComponentsWithStats-compatible labeling of nonzero pixels.
+// stats rows: [left, top, width, height, area], row 0 the background over
+// the whole image; centroids (x, y).  Returns num_labels (background
+// included), or -1 if it exceeds max_labels.
+int ps_cc_with_stats(const uint8_t* img, int h, int w, int connectivity,
+                     int32_t* labels, int32_t* stats, double* centroids,
+                     int max_labels) {
+    const int num_labels = label_image(img, h, w, connectivity, labels);
+    if (num_labels > max_labels) return -1;
+
+    std::vector<int32_t> left(num_labels, w), top(num_labels, h);
+    std::vector<int32_t> right(num_labels, -1), bottom(num_labels, -1);
+    std::vector<int64_t> area(num_labels, 0), sx(num_labels, 0), sy(num_labels, 0);
+    for (int y = 0; y < h; ++y) {
+        const int32_t* row = labels + static_cast<size_t>(y) * w;
+        for (int x = 0; x < w; ++x) {
+            const int32_t l = row[x];
+            area[l]++;
+            sx[l] += x;
+            sy[l] += y;
+            if (x < left[l]) left[l] = x;
+            if (x > right[l]) right[l] = x;
+            if (y < top[l]) top[l] = y;
+            if (y > bottom[l]) bottom[l] = y;
+        }
+    }
+    for (int l = 0; l < num_labels; ++l) {
+        int32_t* srow = stats + static_cast<size_t>(l) * 5;
+        if (l == 0) {
+            srow[0] = 0; srow[1] = 0; srow[2] = w; srow[3] = h;
+        } else {
+            srow[0] = left[l];
+            srow[1] = top[l];
+            srow[2] = right[l] - left[l] + 1;
+            srow[3] = bottom[l] - top[l] + 1;
+        }
+        srow[4] = static_cast<int32_t>(area[l]);
+        centroids[l * 2] = area[l] ? static_cast<double>(sx[l]) / area[l] : 0.0;
+        centroids[l * 2 + 1] = area[l] ? static_cast<double>(sy[l]) / area[l] : 0.0;
+    }
+    return num_labels;
+}
 
 // Fused cc-majority vote: label the binary's 4-connected components,
 // histogram pred classes per component, and overwrite each component with
@@ -279,7 +337,7 @@ void ps_vote_finish_packed(const uint8_t* packed, const uint8_t* ink,
             for (int x = 0; x < ow; ++x)
                 crow[x] = (prow[x >> 2] >> ((x & 3) * 2)) & 3;
         }
-        const int num_labels = label_image(ip, oh, ow, labels.data());
+        const int num_labels = label_image(ip, oh, ow, 4, labels.data());
         if (num_labels > 1) {
             std::vector<int64_t> counts(
                 static_cast<size_t>(num_labels) * n_classes, 0);

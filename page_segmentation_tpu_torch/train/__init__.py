@@ -1,0 +1,1 @@
+"""train of the PyTorch/CUDA port (mirrors page_segmentation_tpu.train)."""

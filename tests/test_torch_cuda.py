@@ -1,5 +1,6 @@
-"""The CUDA labeler (csrc/cc_label.cu) against the port's plain PyTorch
-labeler, on the card.  Needs a CUDA card: every test here skips without one
+"""The CUDA kernels (csrc/cc_label.cu, csrc/add_one.cu) against their plain
+PyTorch versions, and the per-page classifier with its device vote, on the
+card.  Needs a CUDA card: every test here skips without one
 (the kernel has no CPU mode).  The file imports nothing of JAX, so it runs
 on a machine with a card and no JAX:
 
@@ -9,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from page_segmentation_tpu_torch.ops import cuda_cc
+from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
 
 
 @pytest.fixture
@@ -70,3 +71,37 @@ def test_vote_on_the_card_matches_cpu(cuda_device):
     want = cuda_cc.cc_vote_batch(pred, ink, 3, device="cpu")
     got = cuda_cc.cc_vote_batch(pred.to(cuda_device), ink.to(cuda_device), 3, device=cuda_device)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(424, 304), (3, 1000, 777), (1,)])
+def test_add_one_matches_plain_version(shape, cuda_device):
+    x = torch.from_numpy(np.random.default_rng(5).integers(-2**31, 2**31 - 1, shape, dtype=np.int64))
+    x = x.to(torch.int32).to(cuda_device)
+    before = cuda_add_one.launches
+    got = cuda_add_one.add_one(x, device=cuda_device)
+    torch.cuda.synchronize()
+    assert cuda_add_one.launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, cuda_add_one.add_one_reference(x))
+
+
+@pytest.mark.cuda
+def test_classifier_device_vote_on_the_card_matches_cpu(cuda_device, monkeypatch):
+    from page_segmentation_tpu_torch.inference.classifier import PixelClassifier
+    from page_segmentation_tpu_torch.inference.postprocess import cc_vote_on_device
+
+    rng = np.random.RandomState(2)
+    images = rng.randint(0, 256, (2, 48, 40)).astype(np.uint8)
+    binaries = (rng.rand(2, 48, 40) > 0.5).astype(np.uint8)
+    palette = np.array([[0, 0, 0], [255, 0, 0], [0, 255, 0]], np.uint8)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)  # float32 is float32
+    card, cpu = PixelClassifier(3, device=cuda_device), PixelClassifier(3, device="cpu")
+    before = cuda_cc.launches
+    got_pred, got_masks = card.predict_batch_masks(images, binaries, palette, device_vote=True)
+    assert cuda_cc.launches == before + 3
+    want_pred, want_masks = cpu.predict_batch_masks(images, binaries, palette, device_vote=True)
+    assert (got_pred == want_pred).mean() >= 0.9999
+    pred = rng.randint(0, 3, (48, 40)).astype(np.int32)
+    want = cc_vote_on_device(pred, binaries[0], 3, device="cpu")
+    assert torch.equal(cc_vote_on_device(pred, binaries[0], 3, device=cuda_device).cpu(), want)

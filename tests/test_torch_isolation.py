@@ -57,12 +57,16 @@ def test_importing_the_port_loads_no_jax():
 
 def _entry_points():
     from page_segmentation_tpu_torch.core.colors import DEFAULT_IMAGE_MAP
+    from page_segmentation_tpu_torch.inference.classifier import PixelClassifier
+    from page_segmentation_tpu_torch.inference.postprocess import cc_vote_on_device
+    from page_segmentation_tpu_torch.inference.predictor import Predictor, PredictSettings
     from page_segmentation_tpu_torch.inference.pipeline import (
         ThroughputPredictor,
         make_fused_predict,
     )
     from page_segmentation_tpu_torch.models.fcn import FCNSkip
-    from page_segmentation_tpu_torch.ops import cuda_cc
+    from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
+    from page_segmentation_tpu_torch.tools import repro_download
 
     ink = np.ones((8, 8), np.uint8)
     return {
@@ -73,11 +77,18 @@ def _entry_points():
         "cc_min_label_batch": lambda: cuda_cc.cc_min_label_batch(ink[None]),
         "cc_min_label_tiled": lambda: cuda_cc.cc_min_label_tiled(ink),
         "cc_vote_batch": lambda: cuda_cc.cc_vote_batch(ink[None], ink[None], 3),
+        "PixelClassifier": lambda: PixelClassifier(3),
+        "Predictor": lambda: Predictor(PredictSettings(n_classes=3, network="missing")),
+        "cc_vote_on_device": lambda: cc_vote_on_device(ink, ink, 3),
+        "add_one": lambda: cuda_add_one.add_one(ink),
+        "repro_download.main": lambda: repro_download.main(trials=1),
     }
 
 
 @pytest.mark.parametrize("name", ["ThroughputPredictor", "make_fused_predict", "cc_min_label",
-                                  "cc_min_label_batch", "cc_min_label_tiled", "cc_vote_batch"])
+                                  "cc_min_label_batch", "cc_min_label_tiled", "cc_vote_batch",
+                                  "PixelClassifier", "Predictor", "cc_vote_on_device", "add_one",
+                                  "repro_download.main"])
 def test_default_device_is_cuda_and_raises_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
