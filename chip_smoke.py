@@ -5,7 +5,10 @@ NVIDIA card.
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels and host library from the sources in this
-checkout, holds every kernel against its plain PyTorch version on the card,
+checkout, holds every kernel against its plain PyTorch version on the card
+(the labeler also on tile-edge, checkerboard, ruled and ragged ink), times
+each one from the host, on the card alone (CUDA graph) and per pass
+(torch.profiler), and the host cost of each piece of the launch path,
 checks the bf16 forward against float32, and drives three paths, each with
 the kernels' launch counts set to 0 just before it and read just after:
 
@@ -108,6 +111,35 @@ def spiral(h: int, w: int) -> np.ndarray:
     return ink
 
 
+def edge_lines(h: int, w: int, axis: int, spine: bool) -> np.ndarray:
+    """1-px lines on both sides of every 32-px tile edge of the labeler,
+    vertical (``axis`` 1) or horizontal (0); with ``spine`` the first row
+    or column joins them into one comb."""
+    ink = np.zeros((h, w), np.uint8)
+    at = [i for i in range((h, w)[axis]) if i % 32 in (0, 31)]
+    if axis == 1:
+        ink[:, at] = 1
+        ink[0] = spine
+    else:
+        ink[at] = 1
+        ink[:, 0] = spine
+    return ink
+
+
+def checkerboard(h: int, w: int) -> np.ndarray:
+    """No two ink pixels 4-adjacent: every pixel its own component."""
+    return (np.add.outer(np.arange(h), np.arange(w)) % 2).astype(np.uint8)
+
+
+def ruled(ink: np.ndarray, every: int = 20) -> np.ndarray:
+    """``ink`` with 1-px rules every ``every`` rows and columns: one
+    component that crosses every tile."""
+    ink = ink.copy()
+    ink[::every] = 1
+    ink[:, ::every] = 1
+    return ink
+
+
 def scipy_min_labels(ink: np.ndarray) -> np.ndarray:
     """Independent oracle: scipy's 4-connected labeling, relabeled to
     1 + the minimum flat index of each component."""
@@ -138,22 +170,27 @@ def cuda_ms(fn, reps: int = TIMING_REPS, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def cuda_ms_per_call(fn, calls: int = 200, reps: int = 5) -> float:
-    """Median over ``reps`` of the milliseconds per call of ``calls``
-    back-to-back calls of ``fn`` between two CUDA events: for kernels
-    shorter than one launch."""
-    fn()
+def cuda_ms_per_call(fns, calls: int = 200, rounds: int = 7):
+    """{name: milliseconds per call} of each function of ``fns``: ``calls``
+    back-to-back calls between two CUDA events, for kernels shorter than one
+    launch (so the host's cost sets the time).  The functions are timed in
+    turns, the order reversed every round, and each one's median over
+    ``rounds`` is kept: a drift in the shared host's speed falls on all of
+    them alike."""
+    for fn in fns.values():
+        fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return float(np.median(times))
+    times = {name: [] for name in fns}
+    for r in range(rounds):
+        for name, fn in (list(fns.items()) if r % 2 == 0 else list(fns.items())[::-1]):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / calls)
+    return {name: float(np.median(t)) for name, t in times.items()}
 
 
 def graph_ms_per_call(fn, calls: int = 200, reps: int = 5) -> float:
@@ -180,6 +217,39 @@ def graph_ms_per_call(fn, calls: int = 200, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
+
+
+def host_us(fn, calls: int = 10_000) -> float:
+    """Host microseconds per call of ``fn`` over ``calls`` back-to-back
+    calls (perf_counter, no synchronisation inside the loop)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def kernel_ms_by_name(fn, names, calls: int = 20):
+    """Device milliseconds per call of ``fn`` in each kernel whose name
+    holds one of ``names``, from torch.profiler over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    totals = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for name in names:
+                if name in e.name:
+                    totals[name] += (e.time_range.end - e.time_range.start) / 1e3
+    return {name: ms / calls for name, ms in totals.items()}
 
 
 def normalized_shapes():
@@ -216,9 +286,15 @@ def phase_card():
     log(f"phase build: {len(logs)} libraries built in {build_s:.2f} s (parallel compilers)")
 
 
+CC_PASSES = ("tile_kernel", "border_kernel", "flatten_kernel")  # csrc/cc_label.cu
+
+
 def phase_kernels(text_ink: np.ndarray, large_ink: np.ndarray):
     """Every kernel entry point against the plain PyTorch labeler on the
-    card, exact equality; timings at the main path's shape."""
+    card, exact equality, on random, text-like, tile-edge, checkerboard,
+    ruled and ragged ink; timings at the main path's shape and at
+    LARGE_PAGE: from the host (``ms``), the kernels alone in a CUDA graph
+    (``device_ms``) and per pass (torch.profiler)."""
     from page_segmentation_tpu_torch.ops import cuda_cc
 
     dev = torch.device(DEVICE)
@@ -239,6 +315,16 @@ def phase_kernels(text_ink: np.ndarray, large_ink: np.ndarray):
         "batch text-like ink": text_ink,
         "snake/spiral/empty/full": np.stack([snake(h, w), spiral(h, w),
                                              np.zeros((h, w), np.uint8), np.ones((h, w), np.uint8)]),
+        "vertical lines on tile edges, comb/apart": np.stack([edge_lines(h, w, 1, True),
+                                                              edge_lines(h, w, 1, False)]),
+        "horizontal lines on tile edges, comb/apart": np.stack([edge_lines(h, w, 0, True),
+                                                                edge_lines(h, w, 0, False)]),
+        "checkerboard": checkerboard(h, w)[None],
+        "rules page, one component across every tile": ruled(text_ink[0])[None],
+        "ragged 421x298 unpadded": np.ascontiguousarray(text_ink[:4, :421, :298]) | (rng.random((4, 421, 298)) < 0.2),
+        "ragged 1x4096": rng.random((2, 1, 4096)) < 0.7,
+        "ragged 4096x1": rng.random((2, 4096, 1)) < 0.7,
+        "width 300, not a multiple of 16": rng.random((3, h, 300)) < 0.5,
     }
     for name, ink in cases.items():
         ink_dev = torch.from_numpy(ink.astype(bool)).to(dev)
@@ -249,6 +335,9 @@ def phase_kernels(text_ink: np.ndarray, large_ink: np.ndarray):
     page_dev = torch.from_numpy(text_ink[0].astype(bool)).to(dev)
     got, _ = cuda_cc.cc_min_label_pallas(page_dev, device=dev)
     hold("cc_min_label_pallas[one page]", got, cuda_cc.cc_min_label_reference(page_dev[None])[0][0])
+    uint8_dev = torch.from_numpy(text_ink * np.uint8(255)).to(dev)  # uint8 goes in as it is
+    hold("_label_cuda[uint8 0/255 batch]", cuda_cc._label_cuda(uint8_dev),
+         cuda_cc.cc_min_label_reference(uint8_dev)[0])
 
     large_dev = torch.from_numpy(large_ink.astype(bool)).to(dev)
     got, _ = cuda_cc.cc_min_label_tiled(large_dev, device=dev)
@@ -260,24 +349,36 @@ def phase_kernels(text_ink: np.ndarray, large_ink: np.ndarray):
     log(f"  cc_min_label_tiled == scipy.ndimage.label relabeled to min flat index "
         f"(plain version took {cycles} scan cycles)")
 
+    def timings(ink_dev, entry, graph_calls):
+        return {
+            "ms": cuda_ms(entry),
+            "device_ms": graph_ms_per_call(lambda: cuda_cc._label_cuda(ink_dev), calls=graph_calls),
+            "pass_ms": kernel_ms_by_name(lambda: cuda_cc._label_cuda(ink_dev), CC_PASSES),
+            "plain_ms": cuda_ms(lambda: cuda_cc.cc_min_label_reference(ink_dev), reps=3, warmup=1),
+            "bound_ms": label_bound_ms(ink_dev.numel()),
+            # the same bytes as the tile pass (1 B read, 4 B written per pixel)
+            # moved by a PyTorch cast: a yardstick for it, not the function
+            "cast_ms": graph_ms_per_call(lambda: ink_dev.to(torch.int32), calls=graph_calls),
+        }
+
     main_dev = torch.from_numpy(text_ink.astype(bool)).to(dev)
-    main = {
-        "ms": cuda_ms(lambda: cuda_cc.cc_min_label_batch(main_dev, device=dev)),
-        "plain_ms": cuda_ms(lambda: cuda_cc.cc_min_label_reference(main_dev), reps=3, warmup=1),
-        "bound_ms": label_bound_ms(main_dev.numel()),
-    }
-    tiled = {
-        "shape": list(LARGE_PAGE),
-        "ms": cuda_ms(lambda: cuda_cc.cc_min_label_tiled(large_dev, device=dev)),
-        "plain_ms": cuda_ms(lambda: cuda_cc.cc_min_label_reference(large_dev[None]),
-                            reps=3, warmup=1),
-        "bound_ms": label_bound_ms(large_dev.numel()),
-    }
-    log(f"phase kernels: cc_label at {tuple(main_dev.shape)}: kernel {main['ms']:.4f} ms, "
-        f"plain {main['plain_ms']:.3f} ms, byte bound {main['bound_ms']:.4f} ms; "
-        f"at {LARGE_PAGE}: kernel {tiled['ms']:.4f} ms, plain {tiled['plain_ms']:.3f} ms, "
-        f"bound {tiled['bound_ms']:.4f} ms")
-    return dict(main, max_abs_err=max_err, tiled=tiled)
+    main = timings(main_dev, lambda: cuda_cc.cc_min_label_batch(main_dev, device=dev), 50)
+    tiled = dict(timings(large_dev[None], lambda: cuda_cc.cc_min_label_tiled(large_dev, device=dev), 20),
+                 shape=list(LARGE_PAGE))
+    for where, t in ((tuple(main_dev.shape), main), (LARGE_PAGE, tiled)):
+        log(f"phase kernels: cc_label at {where}: from the host {t['ms']:.4f} ms, kernels alone "
+            f"(CUDA graph) {t['device_ms']:.4f} ms = "
+            + " + ".join(f"{k.split('_')[0]} {v:.4f}" for k, v in t["pass_ms"].items())
+            + f" ms (profiler); plain {t['plain_ms']:.3f} ms, byte bound {t['bound_ms']:.4f} ms "
+            f"({t['device_ms'] / t['bound_ms']:.2f}x); ink.to(int32) in a graph {t['cast_ms']:.4f} ms")
+    # the wrapper's host cost, on a page small enough that the host, not the card, sets the rate
+    tiny = torch.from_numpy(text_ink[:1, :32, :32].astype(bool)).to(dev).contiguous()
+    host = {"_label_cuda": host_us(lambda: cuda_cc._label_cuda(tiny), calls=2_000),
+            "cc_min_label_batch": host_us(lambda: cuda_cc.cc_min_label_batch(tiny, device=dev),
+                                          calls=2_000)}
+    log(f"  host us per call on a 1x32x32 page over 2,000 calls: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
+    return dict(main, max_abs_err=max_err, tiled=tiled, host_us=host)
 
 
 def phase_forward(state, dec: np.ndarray):
@@ -353,8 +454,9 @@ def phase_main_path(state, pages, binaries):
     n_batches = -(-N_PAGES // BATCH)
     log(f"phase main path: {N_PAGES} pages at batch {BATCH} in {wall:.3f} s = "
         f"{N_PAGES / wall:.2f} pages/s; cc_label launches {launches}")
-    if launches != 3 * n_batches:
-        raise AssertionError(f"cc_label launched {launches} times, expected {3 * n_batches}")
+    if launches != cuda_cc.LAUNCHES_PER_CALL * n_batches:
+        raise AssertionError(f"cc_label launched {launches} times, expected "
+                             f"{cuda_cc.LAUNCHES_PER_CALL * n_batches}")
 
     out_h, out_w = tp.fused.valid_shape
     for trio in outs:
@@ -412,6 +514,65 @@ def phase_main_path(state, pages, binaries):
     return launches, tp
 
 
+def launch_pieces_us(x: torch.Tensor):
+    """Host microseconds per call of each piece of the kernel launch path,
+    over 10,000 calls each: the pieces of the wrapper before this redesign
+    (``old:``), those of ``_kernels.launch`` (``new:``), and whole calls."""
+    import ctypes
+    import threading
+
+    from page_segmentation_tpu_torch import _kernels
+    from page_segmentation_tpu_torch.device import on_card, resolve_device
+    from page_segmentation_tpu_torch.ops import cuda_add_one
+
+    dev, index = x.device, x.get_device()
+    entry = cuda_add_one._ADD_ONE
+    fn = entry.fn or entry.bind()
+    out = torch.empty_like(x)
+    n, xp, op = x.numel(), x.data_ptr(), out.data_ptr()
+    stream = _kernels.current_raw_stream(index)
+    lock = threading.Lock()
+    count = [0]
+
+    def locked():  # the wrappers count their launches under a lock
+        with lock:
+            count[0] += 1
+
+    def unlocked():
+        count[0] += 1
+
+    def guard():
+        with torch.cuda.device(dev):
+            pass
+
+    pieces = {
+        "old: resolve_device (torch.cuda.is_available)": lambda: resolve_device(dev),
+        "old: x.to(int32).contiguous()": lambda: x.to(torch.int32).contiguous(),
+        "old: load_library (lock + dict)": lambda: _kernels.load_library(_kernels.KERNELS["add_one"]),
+        "old: with torch.cuda.device": guard,
+        "old: torch.cuda.current_stream().cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "old: 3 ctypes.c_void_p": lambda: (ctypes.c_void_p(xp), ctypes.c_void_p(op), ctypes.c_void_p(stream)),
+        "old: ctypes call with c_void_p args (launch)": lambda: fn(
+            ctypes.c_void_p(xp), ctypes.c_void_p(op), n, ctypes.c_void_p(stream)),
+        "new: on_card": lambda: on_card(x, dev),
+        "new: x.get_device()": x.get_device,
+        "new: dtype + contiguity check": lambda: x.dtype != torch.int32 or not x.is_contiguous(),
+        "new: torch.empty_like": lambda: torch.empty_like(x),
+        "new: entry.fn": lambda: entry.fn,
+        "new: torch._C._cuda_getDevice": torch._C._cuda_getDevice,
+        "new: current_raw_stream": lambda: _kernels.current_raw_stream(index),
+        "new: bound ctypes call (launch)": lambda: fn(xp, op, n, stream),
+        "new: _kernels.launch": lambda: _kernels.launch(entry, index, xp, op, n),
+        "locked counter": locked,
+        "unlocked counter": unlocked,
+        "whole: _add_one_cuda": lambda: cuda_add_one._add_one_cuda(x),
+        "whole: add_one": lambda: cuda_add_one.add_one(x, device=dev),
+        "whole: torch.add(x, 1)": lambda: torch.add(x, 1),
+        "empty loop": lambda: None,
+    }
+    return {name: host_us(piece) for name, piece in pieces.items()}
+
+
 def phase_repro_download():
     """K3's kernel against its plain version at the tool's shape, timed
     beside torch.add; then the download-race tool in both modes, on the
@@ -427,12 +588,13 @@ def phase_repro_download():
     err = int((got.long() - want.long()).abs().max())
     if got.shape != want.shape or got.dtype != torch.int32 or err != 0:
         raise AssertionError(f"add_one differs from its plain version (max |d| {err})")
+    per_call = cuda_ms_per_call({"ms": lambda: cuda_add_one.add_one(x, device=dev),
+                                 "plain_ms": lambda: cuda_add_one.add_one_reference(x),
+                                 "library_ms": lambda: torch.add(x, 1)})
     kernel = {
         "shape": list(x.shape),
         "max_abs_err": err,
-        "ms": cuda_ms_per_call(lambda: cuda_add_one.add_one(x, device=dev)),
-        "plain_ms": cuda_ms_per_call(lambda: cuda_add_one.add_one_reference(x)),
-        "library_ms": cuda_ms_per_call(lambda: torch.add(x, 1)),
+        **per_call,
         # 4 B read and 4 B written per element
         "bound_ms": x.numel() * 8 / HBM_BYTES_PER_S * 1e3,
         "graph_ms": graph_ms_per_call(lambda: cuda_add_one.add_one(x, device=dev)),
@@ -440,10 +602,13 @@ def phase_repro_download():
         "library_graph_ms": graph_ms_per_call(lambda: torch.add(x, 1)),
     }
     log(f"phase repro_download: add_one == plain at {tuple(x.shape)}; per call over 200 "
-        f"back-to-back launches: kernel {kernel['ms']:.5f} ms, plain {kernel['plain_ms']:.5f} ms, "
+        f"back-to-back launches (median of 7 rounds in turns): kernel {kernel['ms']:.5f} ms, plain {kernel['plain_ms']:.5f} ms, "
         f"torch.add {kernel['library_ms']:.5f} ms; device time per call in a CUDA graph of 200: "
         f"kernel {kernel['graph_ms']:.5f} ms, plain {kernel['plain_graph_ms']:.5f} ms, "
         f"torch.add {kernel['library_graph_ms']:.5f} ms; byte bound {kernel['bound_ms']:.6f} ms")
+    kernel["host_us"] = launch_pieces_us(x)
+    log("  host us per call over 10,000 calls: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in kernel["host_us"].items()))
 
     launches = {}
     for simple in (True, False):
@@ -455,7 +620,7 @@ def phase_repro_download():
         if any(failures.values()):
             raise AssertionError(f"repro_download {mode} mode: corrupt downloads {failures}")
     want_launches = {"simple": {"add_one": REPRO_TRIALS, "cc_label": 0},
-                     "real": {"add_one": 0, "cc_label": 3 * REPRO_TRIALS}}
+                     "real": {"add_one": 0, "cc_label": cuda_cc.LAUNCHES_PER_CALL * REPRO_TRIALS}}
     if launches != want_launches:
         raise AssertionError(f"repro_download launches {launches}, expected {want_launches}")
     log(f"  repro_download: 0 corrupt downloads in {REPRO_TRIALS} trials x 2 arms x 2 modes; "
@@ -550,9 +715,9 @@ def phase_library(pages, binaries):
     log(f"  predict_dataset_fast: {LIBRARY_PAGES} pages at batch {LIBRARY_BATCH} (device vote, "
         f"trio written) in {wall:.3f} s = {LIBRARY_PAGES / wall:.2f} pages/s; "
         f"cc_label launches {launches}")
-    if launches != 3 * n_batches or cuda_add_one.launches:
-        raise AssertionError(f"cc_label launched {launches} times (expected {3 * n_batches}), "
-                             f"add_one {cuda_add_one.launches}")
+    if launches != cuda_cc.LAUNCHES_PER_CALL * n_batches or cuda_add_one.launches:
+        raise AssertionError(f"cc_label launched {launches} times (expected "
+                             f"{cuda_cc.LAUNCHES_PER_CALL * n_batches}), add_one {cuda_add_one.launches}")
     if len(results) != LIBRARY_PAGES:
         raise AssertionError(f"{len(results)} results for {LIBRARY_PAGES} pages")
 
@@ -640,8 +805,7 @@ def phase_profile(tp, pages, binaries):
         f"{len(device)} device events, {total_us / 1e3:.3f} ms of device time")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         log(f"  {us / 1e3:9.3f} ms {us / max(total_us, 1e-9):7.2%}  {name[:110]}")
-    cc = {k: sum(us for name, us in by_name.items() if k in name)
-          for k in ("init_kernel", "merge_kernel", "compress_kernel")}
+    cc = {k: sum(us for name, us in by_name.items() if k in name) for k in CC_PASSES}
     cc_us = sum(cc.values())
     log(f"  cc_label kernels: {cc_us / 1e3:.3f} ms, {cc_us / max(total_us, 1e-9):.2%} of "
         f"device time; " + ", ".join(f"{k} {us / 1e3:.3f} ms" for k, us in cc.items()))
@@ -694,10 +858,14 @@ def main(argv=None) -> int:
         "launches": launches,
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"],
+        "device_ms": kernel["device_ms"],
+        "pass_ms": kernel["pass_ms"],
         "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "cast_ms": kernel["cast_ms"],
+        "host_us": kernel["host_us"],
         "launches_by_path": {"throughput": launches, "library": library["launches"],
                              "repro_download": add_one["cc_label_launches"]},
         "tiled": kernel["tiled"],
@@ -717,6 +885,7 @@ def main(argv=None) -> int:
         "library_ms": add_one["library_ms"],
         "graph_ms": {"kernel": add_one["graph_ms"], "plain": add_one["plain_graph_ms"],
                      "library": add_one["library_graph_ms"]},
+        "host_us": add_one["host_us"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

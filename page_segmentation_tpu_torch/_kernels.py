@@ -1,4 +1,5 @@
-"""Build and load the port's compiled libraries at first use.
+"""Build and load the port's compiled libraries at first use, and launch
+their kernels.
 
 Two kinds of library, both bound through a plain C interface with ctypes:
 
@@ -13,6 +14,15 @@ to a private temporary name and is renamed into place, so processes that
 build the same library at once do not see each other's partial output.
 :func:`build_libraries` starts one compiler process per library, all at
 once, and waits for them together.
+
+A kernel's C entry point is an :class:`Entry`, made once at module level by
+the wrapper that launches it.  Its first call builds and loads the library
+and types the function (under a lock); from then on the bound ctypes
+function is an attribute of the entry, so :func:`launch` takes no lock and
+looks nothing up.  :func:`launch` passes the caller's current CUDA stream as
+a raw integer (no ``torch.cuda.Stream`` is built) and enters a device guard
+only when the tensor's card is not the current one (never asking which card
+is current when the process sees one card).
 """
 from __future__ import annotations
 
@@ -24,7 +34,9 @@ import subprocess
 import threading
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -134,3 +146,47 @@ def load_library(spec: LibrarySpec) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(spec.target()))
             _loaded[spec.name] = lib
         return lib
+
+
+class Entry:
+    """The C function ``symbol`` of the kernel library ``kernel`` (a key of
+    :data:`KERNELS`), taking ``argtypes`` and then the stream, returning a
+    CUDA error code.  Bound at its first launch."""
+
+    __slots__ = ("kernel", "symbol", "argtypes", "fn", "one_card")
+
+    def __init__(self, kernel: str, symbol: str, argtypes: Tuple):
+        self.kernel, self.symbol, self.argtypes = kernel, symbol, argtypes
+        self.fn: Optional[Callable[..., int]] = None
+        # with one visible card every tensor's card is the current one
+        self.one_card = False
+
+    def bind(self) -> Callable[..., int]:
+        fn = getattr(load_library(KERNELS[self.kernel]), self.symbol)
+        fn.argtypes = [*self.argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        self.one_card = torch.cuda.device_count() == 1
+        self.fn = fn
+        return fn
+
+
+def current_raw_stream(index: int) -> int:
+    """The current stream of card ``index`` as the integer handle that
+    ``torch.cuda.current_stream(index).cuda_stream`` gives, without building
+    the ``Stream`` object (the function exists only in CUDA builds of
+    torch)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def launch(entry: Entry, index: int, *args) -> None:
+    """Call ``entry`` with ``args`` and the current stream of card ``index``,
+    on that card; raises on a nonzero CUDA error code."""
+    fn = entry.fn or entry.bind()
+    # the stream is what current_raw_stream(index) returns, read inline
+    if entry.one_card or index == torch._C._cuda_getDevice():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if rc:
+        raise RuntimeError(f"{entry.symbol} launch failed: CUDA error {rc}")

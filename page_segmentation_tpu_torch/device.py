@@ -19,3 +19,16 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def on_card(x: torch.Tensor, device="cuda") -> bool:
+    """True when the CUDA tensor ``x`` already lies where ``device`` names,
+    so an entry point may take it as it is, without :func:`resolve_device`:
+    ``device`` is CUDA with no index (then it names whichever card ``x`` is
+    on) or with ``x``'s index."""
+    if type(device) is not torch.device:
+        if device == "cuda":
+            return True
+        device = torch.device(device)
+    index = device.index
+    return device.type == "cuda" and (index is None or index == x.get_device())

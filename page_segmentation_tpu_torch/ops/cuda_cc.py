@@ -8,8 +8,13 @@ labeler returns (sweeps / passes) is specific to the algorithm.
 
 Two implementations of that contract:
 
-* the hand-written CUDA union-find labeler ``csrc/cc_label.cu``, launched
-  for tensors on the card (three kernels: init, merge, compress);
+* the hand-written CUDA block-based union-find labeler ``csrc/cc_label.cu``,
+  launched for tensors on the card: :data:`LAUNCHES_PER_CALL` kernels per
+  call, one C call from :func:`_label_cuda`.  A tile pass labels each 32×32
+  tile in shared memory and writes every pixel's tile root; a border pass
+  unites the components across tile edges in the output array itself; a
+  flatten pass points every pixel at its final root.  A bool or uint8 tensor
+  goes to the kernel as it is (nonzero is ink), into one int32 output;
 * :func:`cc_min_label_reference`, the plain PyTorch version: segmented
   Hillis-Steele min-scans to a fixed point, the algorithm of
   ``cc_min_label_xla_batch``.  Tensors on the CPU take it.
@@ -30,12 +35,14 @@ import threading
 
 import torch
 
-from ..device import resolve_device
+from .._kernels import Entry, launch
+from ..device import on_card, resolve_device
 
-# kernel launches of csrc/cc_label.cu made by this process (each labeler
-# call launches three: init, merge, compress)
+# kernel launches of csrc/cc_label.cu made by this process
 launches = 0
 _launch_lock = threading.Lock()
+# kernels one labeler call launches: tile, border, flatten
+LAUNCHES_PER_CALL = 3
 
 # the TPU's single-block size limit, kept so cc_min_label dispatches
 # between the two entry points as the JAX package does
@@ -44,38 +51,15 @@ _MAX_GRID_Z = 65_535
 # the JAX labelers' sweep cap, applied to the plain version's cycles
 _MAX_CYCLES = 4096
 
-
-def _count_launch():
-    global launches
-    with _launch_lock:
-        launches += 1
+_CC_LABEL = Entry("cc_label", "ps_cc_label",
+                  (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int))
 
 
 # ----------------------------------------------------------------- the kernel
-def _cc_lib():
-    from .._kernels import KERNELS, load_library
-
-    lib = load_library(KERNELS["cc_label"])
-    if not getattr(lib, "_ps_typed", False):
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.ps_cc_init.argtypes = [vp, vp, i, i, i, vp]
-        lib.ps_cc_merge.argtypes = [vp, vp, i, i, i, vp]
-        lib.ps_cc_compress.argtypes = [vp, vp, vp, i, i, i, vp]
-        for fn in (lib.ps_cc_init, lib.ps_cc_merge, lib.ps_cc_compress):
-            fn.restype = ctypes.c_int
-        lib._ps_typed = True
-    return lib
-
-
-def _check(rc: int, what: str):
-    if rc != 0:
-        raise RuntimeError(f"cc_label {what} launch failed: CUDA error {rc}")
-    _count_launch()
-
-
 def _label_cuda(ink: torch.Tensor) -> torch.Tensor:
-    """(N, H, W) bool/uint8 ink on the card -> int32 labels, by the
-    union-find kernel on the current stream."""
+    """(N, H, W) bool/uint8 ink on the card (nonzero = ink) -> int32
+    labels, by the union-find kernels on the current stream."""
+    global launches
     if ink.device.type != "cuda":
         raise ValueError(f"_label_cuda needs a CUDA tensor, got {ink.device}")
     if ink.dtype not in (torch.bool, torch.uint8):
@@ -85,18 +69,12 @@ def _label_cuda(ink: torch.Tensor) -> torch.Tensor:
     n, h, w = ink.shape
     if n > _MAX_GRID_Z or h * w >= 2**31:
         raise ValueError(f"batch {n} > {_MAX_GRID_Z} pages or page {h}x{w} >= 2^31 px")
-    parent = torch.empty((n, h, w), dtype=torch.int32, device=ink.device)
-    labels = torch.empty_like(parent)
-    if ink.numel() == 0:
+    labels = torch.empty((n, h, w), dtype=torch.int32, device=ink.device)
+    if labels.numel() == 0:
         return labels
-    lib = _cc_lib()
-    with torch.cuda.device(ink.device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(ink.device).cuda_stream)
-        ink_p, parent_p = ctypes.c_void_p(ink.data_ptr()), ctypes.c_void_p(parent.data_ptr())
-        _check(lib.ps_cc_init(ink_p, parent_p, n, h, w, stream), "init")
-        _check(lib.ps_cc_merge(ink_p, parent_p, n, h, w, stream), "merge")
-        _check(lib.ps_cc_compress(ink_p, parent_p, ctypes.c_void_p(labels.data_ptr()),
-                                  n, h, w, stream), "compress")
+    launch(_CC_LABEL, ink.get_device(), ink.data_ptr(), labels.data_ptr(), n, h, w)
+    with _launch_lock:
+        launches += LAUNCHES_PER_CALL
     return labels
 
 
@@ -155,10 +133,16 @@ def cc_min_label_reference(ink: torch.Tensor, max_iters: int = _MAX_CYCLES):
 
 # ------------------------------------------------------------ public labelers
 def _as_ink(ink, device, ndim: int) -> torch.Tensor:
-    ink = torch.as_tensor(ink, device=resolve_device(device))
+    """``ink`` on ``device`` as a contiguous bool or uint8 tensor (nonzero =
+    ink); a bool or uint8 tensor keeps its dtype, anything else becomes
+    ``ink != 0``."""
+    if not (isinstance(ink, torch.Tensor) and ink.is_cuda and on_card(ink, device)):
+        ink = torch.as_tensor(ink, device=resolve_device(device))
     if ink.dim() != ndim:
         raise ValueError(f"ink must have {ndim} dims, got {tuple(ink.shape)}")
-    return (ink != 0).contiguous()
+    if ink.dtype not in (torch.bool, torch.uint8):
+        ink = ink != 0
+    return ink.contiguous()
 
 
 def _labels(ink: torch.Tensor, max_iters: int):
@@ -226,7 +210,7 @@ def cc_vote_batch(pred, binary, n_classes: int, device="cuda"):
     pred = torch.as_tensor(pred, device=dev)
     ink = _as_ink(binary, dev, 3)
     labels, _ = _labels(ink, _MAX_CYCLES)
-    return _vote_from_labels(pred, ink, labels, n_classes)
+    return _vote_from_labels(pred, ink if ink.dtype == torch.bool else ink != 0, labels, n_classes)
 
 
 def cc_vote_batch_xla(pred, binary, n_classes: int, device="cuda"):

@@ -113,3 +113,34 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_cc._label_cuda(torch.ones((1, 4, 4), dtype=torch.bool))
+
+
+def test_importing_the_port_binds_no_kernel():
+    """Kernels are built and bound at their first launch, never on import."""
+    code = (
+        "from page_segmentation_tpu_torch import _kernels\n"
+        "from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc\n"
+        "from page_segmentation_tpu_torch.inference import pipeline, classifier, predictor\n"
+        "assert cuda_cc._CC_LABEL.fn is None and cuda_add_one._ADD_ONE.fn is None\n"
+        "assert not _kernels._loaded\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                            capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr
+    assert result.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("device, same", [("cuda", True), (torch.device("cuda"), True),
+                                          ("cuda:3", False), (torch.device("cuda", 3), False),
+                                          ("cpu", False)])
+def test_on_card_names_the_tensors_own_card(device, same):
+    """``device.on_card``: CUDA without an index names the tensor's own card;
+    an index must match it (a CPU tensor's ``get_device()`` is -1, so no
+    index matches here)."""
+    from page_segmentation_tpu_torch.device import on_card
+
+    assert on_card(torch.zeros(2), device) is same
+
