@@ -9,7 +9,7 @@ checkout, holds every kernel against its plain PyTorch version on the card
 (the labeler also on tile-edge, checkerboard, ruled and ragged ink), times
 each one from the host, on the card alone (CUDA graph) and per pass
 (torch.profiler), and the host cost of each piece of the launch path,
-checks the bf16 forward against float32, and drives three paths, each with
+checks the bf16 forward against float32, and drives these paths, each with
 the kernels' launch counts set to 0 just before it and read just after:
 
 * the throughput predictor over synthetic 300-DPI A4 pages with the device
@@ -17,7 +17,14 @@ the kernels' launch counts set to 0 just before it and read just after:
 * the download-race tool (``tools/repro_download.py``) in both modes, which
   must see no corrupt download in either arm;
 * the per-page library path: DatasetLoader -> PixelClassifier -> Predictor
-  ``predict_dataset_fast`` with the device vote, the trio written as PNGs.
+  ``predict_dataset_fast`` with the device vote, the trio written as PNGs;
+* the user entry points over a corpus of A4 PNGs and a checkpoint written by
+  the port: the CLI's ``predict --pipeline`` (host vote) beside
+  ``RawCorpusPredictor(cc_vote="pallas")``, and ``predict --fast`` (device
+  vote);
+* the HTTP service: ``PredictionServer`` over ``BatchingService`` on
+  localhost, its fused route under concurrent clients and its spline route
+  (device vote).
 
 Then it checks what comes out.  Prints one line per phase, then a JSON line
 of per-kernel measurements, and as the last line
@@ -28,8 +35,10 @@ fails.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -48,6 +57,11 @@ LIBRARY_PAGES = 20         # the per-page path: 2 full batches and a tail of 4
 LIBRARY_BATCH = 8
 LINE_HEIGHT = 50           # px per text line of the synthetic pages
 REPRO_TRIALS = 20
+FAST_PAGES = 20            # predict --fast: 2 full batches and a tail of 4
+SERVE_PAGES = 64
+SERVE_CLIENTS = 8
+SERVE_BATCH = 16
+SPLINE_PAGES = 16          # one batch of the spline serve route
 DEVICE = "cuda"
 
 
@@ -653,8 +667,6 @@ def phase_library(pages, binaries):
     weights init_params_numpy(3, SEED)) on LIBRARY_PAGES A4 pages: load,
     predict_dataset_fast in bf16 with the device vote and the trio written,
     then hold every product against the host's."""
-    import tempfile
-
     from page_segmentation_tpu_torch.core.colors import DEFAULT_IMAGE_MAP
     from page_segmentation_tpu_torch.data.dataset import SingleData
     from page_segmentation_tpu_torch.data.loader import DatasetLoader
@@ -734,8 +746,6 @@ def phase_library(pages, binaries):
                 raise AssertionError(f"{d.output_path}: device vote != host vote of the unvoted labels")
             changed += int((host != unvoted[i, :h, :w]).sum())
             _pngs_decode_to(out_dir, d.output_path, trio)
-    import shutil
-
     shutil.rmtree(out_dir)
     log(f"  device vote == host vote of the same dispatch's unvoted labels on {LIBRARY_PAGES} "
         f"pages ({changed} px relabeled); the trio PNGs decode through zlib to the yielded arrays")
@@ -776,6 +786,319 @@ def phase_library(pages, binaries):
         f"(normalize, bf16 FCNSkip, argmax, cc vote, 2-bit pack)")
     return {"launches": launches, "pages_per_s": LIBRARY_PAGES / wall, "loader_s": loader_s,
             "single_ms": single_ms, "device_ms": device_ms}
+
+
+def _write_corpus(root: str, pages, binaries):
+    """The pages as 8-bit gray PNGs under ``root``/images and their binaries
+    as 1-bit PNGs (the corpus's packed-binary layout) under ``root``/binary,
+    written by the port in parallel; returns the file names."""
+    import os
+
+    from page_segmentation_tpu_torch.core.image_io import imsave, imsave_bilevel
+    from page_segmentation_tpu_torch.data.dataset import io_pool
+
+    names = [f"page{i:03d}.png" for i in range(len(pages))]
+    for sub in ("images", "binary"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+
+    def write(i):
+        imsave(os.path.join(root, "images", names[i]), pages[i])
+        imsave_bilevel(os.path.join(root, "binary", names[i]), binaries[i])
+
+    list(io_pool().map(write, range(len(pages))))
+    return names
+
+
+def phase_corpus(pages, binaries, work: str):
+    """The CLI and the raw-corpus streamer over N_PAGES A4 PNGs with a
+    checkpoint the port writes (FCNSkip, 3 classes, init_params_numpy(3,
+    SEED), run in bf16): ``predict --pipeline --post_process cc_majority``
+    (host vote) timed with its PNG writes, ``RawCorpusPredictor(cc_vote=
+    "pallas")`` whose trio must equal the CLI's PNGs, and ``predict --fast
+    --post_process cc_majority`` (device vote) over FAST_PAGES pages, held
+    against ``Predictor.predict_dataset_fast``."""
+    import os
+
+    from page_segmentation_tpu_torch.cli.main import main as cli
+    from page_segmentation_tpu_torch.core.colors import DEFAULT_IMAGE_MAP
+    from page_segmentation_tpu_torch.core.image_io import imsave
+    from page_segmentation_tpu_torch.data.dataset import SingleData
+    from page_segmentation_tpu_torch.data.loader import DatasetLoader
+    from page_segmentation_tpu_torch.inference.classifier import PixelClassifier
+    from page_segmentation_tpu_torch.inference.corpus import RawCorpusPredictor, RawPage
+    from page_segmentation_tpu_torch.inference.postprocess import vote_connected_component_class
+    from page_segmentation_tpu_torch.inference.predictor import Predictor, PredictSettings
+    from page_segmentation_tpu_torch.models.bridge import init_params_numpy
+    from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
+    from page_segmentation_tpu_torch.train.checkpoint import save_checkpoint
+
+    # two dispatches of the same batch must give the same labels
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model = os.path.join(work, "model")
+    t0 = time.perf_counter()
+    save_checkpoint(model, {"params": init_params_numpy(3, SEED)}, {"architecture": "fcn_skip", "n_classes": 3})
+    names = _write_corpus(work, pages, binaries)
+    log(f"phase corpus: checkpoint and {len(names)} A4 pages (8-bit PNG images, 1-bit PNG binaries) "
+        f"written in {time.perf_counter() - t0:.2f} s")
+    common = ["--load", model, "--char_height", str(LINE_HEIGHT), "--dtype", "bfloat16", "--device", DEVICE]
+    images_dir, binary_dir = os.path.join(work, "images"), os.path.join(work, "binary")
+    out = os.path.join(work, "pipeline_out")
+
+    def counted(fn):
+        """(seconds, cc_label launches) of one run, counts set to 0 just before."""
+        cuda_cc.launches = cuda_add_one.launches = 0
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds, launches = time.perf_counter() - t0, cuda_cc.launches
+        if cuda_add_one.launches:
+            raise AssertionError("add_one ran on a predict path")
+        return seconds, launches, result
+
+    cli_s, cli_launches, rc = counted(lambda: cli(
+        ["predict", "--pipeline", "--post_process", "cc_majority", "--batch_size", str(BATCH),
+         "--images", images_dir, "--binary", binary_dir, "--output", out] + common))
+    if rc != 0 or cli_launches:
+        raise AssertionError(f"predict --pipeline returned {rc}, cc_label launches {cli_launches} (host vote: 0)")
+    log(f"  predict --pipeline --post_process cc_majority (host vote), CLI in-process: {len(names)} pages "
+        f"at batch {BATCH} in {cli_s:.3f} s = {len(names) / cli_s:.2f} pages/s, PNG reads and trio "
+        f"writes included; cc_label launches {cli_launches}")
+
+    cls = PixelClassifier(3, compute_dtype=torch.bfloat16, model_path=model, device=DEVICE)
+    runner = RawCorpusPredictor(cls, DEFAULT_IMAGE_MAP.palette, batch_size=BATCH, cc_vote="pallas",
+                                compute_dtype=torch.bfloat16)
+    raw = [RawPage(os.path.join(images_dir, n), os.path.join(binary_dir, n), LINE_HEIGHT) for n in names]
+    pallas_s, pallas_launches, results = counted(lambda: [(p.name, trio) for p, *trio in runner.run(raw)])
+    want_launches = cuda_cc.LAUNCHES_PER_CALL * -(-len(names) // BATCH)
+    log(f"  RawCorpusPredictor(cc_vote='pallas'): {len(names)} pages in {pallas_s:.3f} s = "
+        f"{len(names) / pallas_s:.2f} pages/s (PNG reads, no writes); cc_label launches {pallas_launches}")
+    if pallas_launches != want_launches:
+        raise AssertionError(f"cc_label launched {pallas_launches} times, expected {want_launches}")
+    out_shape = normalized_shapes()[0] + (3,)
+    for name, trio in results:
+        if any(a.shape != out_shape for a in trio):
+            raise AssertionError(f"{name}: trio shapes {[a.shape for a in trio]}")
+        _pngs_decode_to(out, name, trio)
+    log(f"  the device-voted trio == the CLI's host-voted trio PNGs on all {len(names)} pages")
+
+    # the corpus path's stages, one after another on the same files
+    stages = {}
+    t0 = time.perf_counter()
+    (key, members), = runner.group(raw)
+    stages["header probe + group"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    images, bins = runner._load_slice(runner._SliceRing(), members, *key[:2], packed=True)
+    stages["slice decode (io pool)"] = time.perf_counter() - t0
+    predictor = runner._predictor_for(key, packed_binary=True)
+    t0 = time.perf_counter()
+    trios = [t for batch in predictor.run(images, bins, batch_size=BATCH) for t in zip(*batch)]
+    torch.cuda.synchronize()
+    stages["throughput run (pallas vote)"] = time.perf_counter() - t0
+    written = os.path.join(work, "stage_writes")
+    for sub in ("color", "overlay", "inverted"):
+        os.makedirs(os.path.join(written, sub))
+    t0 = time.perf_counter()
+    for name, trio in zip(names, trios):
+        for sub, arr in zip(("color", "overlay", "inverted"), trio):
+            imsave(os.path.join(written, sub, name), arr)
+    stages["trio PNG writes"] = time.perf_counter() - t0
+    log(f"  corpus stages for {len(names)} pages: " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
+
+    fast_dir = os.path.join(work, "fast")
+    for sub, source in (("images", images_dir), ("binary", binary_dir)):
+        os.makedirs(os.path.join(fast_dir, sub))
+        for n in names[:FAST_PAGES]:
+            os.symlink(os.path.join(source, n), os.path.join(fast_dir, sub, n))
+    fast_out = os.path.join(work, "fast_out")
+    fast_s, fast_launches, rc = counted(lambda: cli(
+        ["predict", "--fast", "--post_process", "cc_majority", "--batch_size", str(LIBRARY_BATCH),
+         "--images", os.path.join(fast_dir, "images"), "--binary", os.path.join(fast_dir, "binary"),
+         "--output", fast_out] + common))
+    want_launches = cuda_cc.LAUNCHES_PER_CALL * -(-FAST_PAGES // LIBRARY_BATCH)
+    log(f"  predict --fast --post_process cc_majority (device vote): {FAST_PAGES} pages at batch "
+        f"{LIBRARY_BATCH} in {fast_s:.3f} s = {FAST_PAGES / fast_s:.2f} pages/s, loader and trio writes "
+        f"included; cc_label launches {fast_launches}")
+    if rc != 0 or fast_launches != want_launches:
+        raise AssertionError(f"predict --fast returned {rc}, cc_label launches {fast_launches} "
+                             f"(expected {want_launches})")
+    dataset = DatasetLoader(6, DEFAULT_IMAGE_MAP, prediction=True).load_data([
+        SingleData(image=pages[i], binary=binaries[i], line_height_px=LINE_HEIGHT, output_path=names[i])
+        for i in range(FAST_PAGES)])
+    settings = PredictSettings(n_classes=3, color_map=DEFAULT_IMAGE_MAP,
+                               post_process=[vote_connected_component_class])
+    for data, _pred, *trio in Predictor(settings, network=cls).predict_dataset_fast(dataset, LIBRARY_BATCH):
+        _pngs_decode_to(fast_out, data.output_path, trio)
+    log(f"  predict --fast trio PNGs == Predictor.predict_dataset_fast's trio on {FAST_PAGES} pages")
+    return {"model": model, "cli_pages_per_s": len(names) / cli_s, "cli_launches": cli_launches,
+            "pallas_pages_per_s": len(names) / pallas_s, "pallas_launches": pallas_launches,
+            "fast_pages_per_s": FAST_PAGES / fast_s, "fast_launches": fast_launches,
+            "stages_ms": {k: v * 1e3 for k, v in stages.items()}}
+
+
+def phase_serve(pages, model: str):
+    """PredictionServer over BatchingService on localhost, fused route with
+    cc_majority (host vote) and max_batch SERVE_BATCH: SERVE_PAGES A4 PNGs
+    posted for their labels by SERVE_CLIENTS client threads, every reply held
+    against a direct ThroughputPredictor(yield_pred=True, cc_vote="host") run
+    of the batch the service formed; then SPLINE_PAGES pages through the
+    spline route (device vote), held against Predictor.predict_dataset_fast."""
+    import hashlib
+    import threading
+    import urllib.request
+
+    from page_segmentation_tpu_torch.core.colors import DEFAULT_IMAGE_MAP
+    from page_segmentation_tpu_torch.core.image_io import (
+        decode_image_bytes,
+        decode_png_unfiltered,
+        encode_png,
+    )
+    from page_segmentation_tpu_torch.data.dataset import SingleData, io_pool
+    from page_segmentation_tpu_torch.data.loader import DatasetLoader
+    from page_segmentation_tpu_torch.inference.classifier import PixelClassifier
+    from page_segmentation_tpu_torch.inference.pipeline import ThroughputPredictor
+    from page_segmentation_tpu_torch.inference.postprocess import vote_connected_component_class
+    from page_segmentation_tpu_torch.inference.predictor import Predictor, PredictSettings
+    from page_segmentation_tpu_torch.inference.server import BatchingService, PredictionServer, ServeStats
+    from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cls = PixelClassifier(3, compute_dtype=torch.bfloat16, model_path=model, device=DEVICE)
+    settings = PredictSettings(n_classes=3, color_map=DEFAULT_IMAGE_MAP,
+                               post_process=[vote_connected_component_class])
+    service = BatchingService(Predictor(settings, network=cls), DEFAULT_IMAGE_MAP,
+                              default_char_height=LINE_HEIGHT, max_batch=SERVE_BATCH)
+    if service.prepare != "fused":
+        raise AssertionError(f"the service chose the {service.prepare} route")
+    service.submit(pages[0]).result(timeout=300)  # warm-up: the geometry's predictor, plans
+    tp = next(iter(service._fused_predictors.values()))
+    formed = []  # (pages, binaries, n_pad) of every batch the service prepares
+    prep_pages = tp.prep_pages
+
+    def recording_prep_pages(batch_pages, batch_binaries, n_pad):
+        formed.append((list(batch_pages), list(batch_binaries), n_pad))
+        return prep_pages(batch_pages, batch_binaries, n_pad)
+
+    tp.prep_pages = recording_prep_pages
+    bodies = list(io_pool().map(encode_png, pages[:SERVE_PAGES]))
+    replies, latency_ms, errors = [None] * SERVE_PAGES, [0.0] * SERVE_PAGES, []
+    server = PredictionServer(service)  # 127.0.0.1, a free port
+    server.start_background()
+    base = f"http://127.0.0.1:{server.port}"
+
+    def client(k):
+        for i in range(k, SERVE_PAGES, SERVE_CLIENTS):
+            request = urllib.request.Request(
+                f"{base}/predict?char_height={LINE_HEIGHT}&output=labels", data=bodies[i], method="POST")
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(request, timeout=300) as reply:
+                    replies[i] = reply.read()
+            except Exception as exc:  # noqa: BLE001 - reported below
+                errors.append(f"page {i}: {exc!r}")
+                return
+            latency_ms[i] = (time.perf_counter() - t0) * 1e3
+
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as reply:
+            health = json.loads(reply.read())
+        service.stats = ServeStats()  # count the timed run only
+        cuda_cc.launches = cuda_add_one.launches = 0
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        serve_s = time.perf_counter() - t0
+        fused_launches = cuda_cc.launches
+        with urllib.request.urlopen(base + "/stats", timeout=60) as reply:
+            stats = json.loads(reply.read())
+    finally:
+        server.stop()
+    if errors or any(t.is_alive() for t in threads) or any(r is None for r in replies):
+        raise AssertionError(f"serve: {len(errors)} failed requests {errors[:3]}")
+    if health.get("device") != torch.cuda.get_device_name(0):
+        raise AssertionError(f"/healthz does not name the card: {health}")
+    lat = np.sort(latency_ms)
+    serve = {"pages_per_s": SERVE_PAGES / serve_s, "client_p50_ms": float(np.percentile(lat, 50)),
+             "client_p99_ms": float(np.percentile(lat, 99)), "stats": stats,
+             "fused_launches": fused_launches, "healthz": health}
+    log(f"phase serve: /healthz {health}; {SERVE_PAGES} A4 PNGs posted by {SERVE_CLIENTS} clients "
+        f"(fused route, cc_majority on the host, max_batch {SERVE_BATCH}) in {serve_s:.3f} s = "
+        f"{serve['pages_per_s']:.2f} pages/s; client latency p50 {serve['client_p50_ms']:.1f} ms, "
+        f"p99 {serve['client_p99_ms']:.1f} ms; /stats mean batch {stats['mean_batch_size']}, "
+        f"p50 {stats['latency_ms_p50']} ms, p99 {stats['latency_ms_p99']} ms, batches "
+        f"{stats['batches_total']}, errors {stats['errors_total']}; cc_label launches {fused_launches}")
+    if fused_launches or cuda_add_one.launches or stats["errors_total"] or stats["pages_total"] != SERVE_PAGES:
+        raise AssertionError(f"serve stats {stats}, cc_label launches {fused_launches}")
+
+    reference = ThroughputPredictor(
+        cls.module, None, DEFAULT_IMAGE_MAP.palette, A4, SCALE, host_decimate=HOST_DECIMATE,
+        compute_dtype=torch.bfloat16, download="packed", cc_vote="host", yield_pred=True, device=DEVICE)
+    want = {}
+    for batch_pages, batch_binaries, n_pad in formed:
+        pred = reference.execute_batch(reference.prep_pages(batch_pages, batch_binaries, n_pad))[0]
+        for j, page in enumerate(batch_pages):
+            want[hashlib.sha1(page).digest()] = pred[j]
+    for i in range(SERVE_PAGES):
+        got = decode_png_unfiltered(replies[i])
+        if got is None or not np.array_equal(got[0], want[hashlib.sha1(pages[i]).digest()]):
+            raise AssertionError(f"page {i}: served labels != direct ThroughputPredictor labels")
+    log(f"  every served label map == a direct ThroughputPredictor(yield_pred=True, cc_vote='host') "
+        f"run of its batch ({len(formed)} batches, sizes {sorted(len(f[0]) for f in formed)})")
+
+    # the serve path's stages, one after another, at a batch of 4 pages
+    stage_ms = {}
+    t0 = time.perf_counter()
+    decoded = [decode_image_bytes(body, as_gray=True) for body in bodies[:4]]
+    stage_ms["HTTP body decode per page"] = (time.perf_counter() - t0) * 1e3 / 4
+    t0 = time.perf_counter()
+    batch_binaries = [np.where(p >= 128, np.uint8(255), np.uint8(0)) for p in decoded]
+    stage_ms["submit's binary per page"] = (time.perf_counter() - t0) * 1e3 / 4
+    t0 = time.perf_counter()
+    prepared = reference.prep_pages(decoded, batch_binaries, 4)
+    stage_ms["prep_pages, batch of 4"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    pred = reference.execute_batch(prepared)[0]
+    torch.cuda.synchronize()
+    stage_ms["execute_batch, batch of 4"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for labels in pred:
+        encode_png(labels.astype(np.uint8))
+    stage_ms["labels PNG encode per page"] = (time.perf_counter() - t0) * 1e3 / 4
+    log("  serve stages: " + ", ".join(f"{k} {v:.1f} ms" for k, v in stage_ms.items())
+        + f"; request body {np.mean([len(b) for b in bodies]) / 1e6:.2f} MB on average")
+
+    spline = BatchingService(Predictor(settings, network=cls), DEFAULT_IMAGE_MAP,
+                             default_char_height=LINE_HEIGHT, max_batch=SPLINE_PAGES,
+                             max_wait_ms=10_000, prepare="spline")
+    try:
+        cuda_cc.launches = cuda_add_one.launches = 0
+        t0 = time.perf_counter()
+        results = [f.result(timeout=600) for f in [spline.submit(p) for p in pages[:SPLINE_PAGES]]]
+        torch.cuda.synchronize()
+        spline_s, spline_launches, spline_batches = time.perf_counter() - t0, cuda_cc.launches, spline.stats.batches_total
+    finally:
+        spline.stop()
+    log(f"  spline route (host prepare, device vote): {SPLINE_PAGES} pages in {spline_batches} batch(es) "
+        f"in {spline_s:.3f} s = {SPLINE_PAGES / spline_s:.2f} pages/s; cc_label launches {spline_launches}")
+    if spline_batches != 1 or spline_launches != cuda_cc.LAUNCHES_PER_CALL or cuda_add_one.launches:
+        raise AssertionError(f"spline route: {spline_batches} batches, cc_label launches {spline_launches}")
+    dataset = DatasetLoader(6, DEFAULT_IMAGE_MAP, prediction=True).load_data([
+        SingleData(image=p, binary=np.where(p >= 128, np.uint8(255), np.uint8(0)), line_height_px=LINE_HEIGHT)
+        for p in pages[:SPLINE_PAGES]])
+    for result, (_, pred, color, overlay, inverted) in zip(
+            results, Predictor(settings, network=cls).predict_dataset_fast(dataset, SPLINE_PAGES)):
+        for key, arr in (("labels", pred), ("color", color), ("overlay", overlay), ("inverted", inverted)):
+            if not np.array_equal(result[key], arr):
+                raise AssertionError(f"spline route {key} != Predictor.predict_dataset_fast's")
+    log(f"  spline route results == Predictor.predict_dataset_fast's on {SPLINE_PAGES} pages")
+    serve.update(spline_pages_per_s=SPLINE_PAGES / spline_s, spline_launches=spline_launches,
+                 stages_ms=stage_ms)
+    return serve
 
 
 def phase_profile(tp, pages, binaries):
@@ -846,8 +1169,22 @@ def main(argv=None) -> int:
         phase_profile(tp, pages, binaries)
     add_one = phase_repro_download()
     library = phase_library(pages, binaries)
+    work = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+    try:
+        corpus = phase_corpus(pages, binaries, work)
+        serve = phase_serve(pages, corpus["model"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log("entry points: " + json.dumps({
+        "corpus_cli_pipeline_pages_per_s": corpus["cli_pages_per_s"],
+        "corpus_pallas_pages_per_s": corpus["pallas_pages_per_s"],
+        "predict_fast_pages_per_s": corpus["fast_pages_per_s"],
+        "serve_pages_per_s": serve["pages_per_s"],
+        "serve_client_p50_ms": serve["client_p50_ms"], "serve_client_p99_ms": serve["client_p99_ms"],
+        "serve_stats": serve["stats"], "serve_spline_pages_per_s": serve["spline_pages_per_s"],
+        "corpus_stages_ms": corpus["stages_ms"], "serve_stages_ms": serve["stages_ms"]}))
     print(json.dumps({"kernels": [{
         "name": "cc_label",
         "route": "cuda",
@@ -867,7 +1204,12 @@ def main(argv=None) -> int:
         "cast_ms": kernel["cast_ms"],
         "host_us": kernel["host_us"],
         "launches_by_path": {"throughput": launches, "library": library["launches"],
-                             "repro_download": add_one["cc_label_launches"]},
+                             "repro_download": add_one["cc_label_launches"],
+                             "predict_pipeline_cli": corpus["cli_launches"],
+                             "corpus_pallas": corpus["pallas_launches"],
+                             "predict_fast_cli": corpus["fast_launches"],
+                             "serve_fused": serve["fused_launches"],
+                             "serve_spline": serve["spline_launches"]},
         "tiled": kernel["tiled"],
     }, {
         "name": "add_one",
@@ -876,7 +1218,9 @@ def main(argv=None) -> int:
         "replaces": "tools/repro_pallas_download.py:45",
         "shape": add_one["shape"],
         "launches": add_one["launches"],
-        "launches_by_path": {"throughput": 0, "library": 0, "repro_download": add_one["launches"]},
+        "launches_by_path": {"throughput": 0, "library": 0, "repro_download": add_one["launches"],
+                             "predict_pipeline_cli": 0, "corpus_pallas": 0, "predict_fast_cli": 0,
+                             "serve_fused": 0, "serve_spline": 0},
         "max_abs_err": add_one["max_abs_err"],
         "ms": add_one["ms"],
         "plain_ms": add_one["plain_ms"],

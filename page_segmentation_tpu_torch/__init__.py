@@ -9,10 +9,14 @@ Two predict paths run on an NVIDIA Hopper card:
   ``Predictor``, with the cc-majority vote fused into the batched dispatch).
 
 Both label connected components for the device vote with a hand-written
-CUDA kernel (``csrc/cc_label.cu``).  ``tools/repro_download.py`` checks that
-downloads come back whole under concurrent uploads, with the elementwise
-kernel ``csrc/add_one.cu``.  Module names mirror the JAX package so each
-counterpart is easy to find.
+CUDA kernel (``csrc/cc_label.cu``).  Users reach them through the raw-corpus
+streamer (``RawCorpusPredictor``), the batching HTTP service
+(``BatchingService``, ``PredictionServer``) and the command line
+(``python -m page_segmentation_tpu_torch.cli``: ``predict``, ``serve``,
+``evaluate``, ``compute-image-normalizations``).  ``tools/repro_download.py``
+checks that downloads come back whole under concurrent uploads, with the
+elementwise kernel ``csrc/add_one.cu``.  Module names mirror the JAX package
+so each counterpart is easy to find.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; a missing card raises rather than falling back.
@@ -30,6 +34,7 @@ _LAZY = {
     "params_from_jax": ("page_segmentation_tpu_torch.models.bridge", "params_from_jax"),
     "init_params_numpy": ("page_segmentation_tpu_torch.models.bridge", "init_params_numpy"),
     "load_checkpoint": ("page_segmentation_tpu_torch.train.checkpoint", "load_checkpoint"),
+    "save_checkpoint": ("page_segmentation_tpu_torch.train.checkpoint", "save_checkpoint"),
     "SingleData": ("page_segmentation_tpu_torch.data.dataset", "SingleData"),
     "Dataset": ("page_segmentation_tpu_torch.data.dataset", "Dataset"),
     "DatasetLoader": ("page_segmentation_tpu_torch.data.loader", "DatasetLoader"),
@@ -38,6 +43,10 @@ _LAZY = {
     "PredictSettings": ("page_segmentation_tpu_torch.inference.predictor", "PredictSettings"),
     "make_fused_predict": ("page_segmentation_tpu_torch.inference.pipeline", "make_fused_predict"),
     "ThroughputPredictor": ("page_segmentation_tpu_torch.inference.pipeline", "ThroughputPredictor"),
+    "RawCorpusPredictor": ("page_segmentation_tpu_torch.inference.corpus", "RawCorpusPredictor"),
+    "RawPage": ("page_segmentation_tpu_torch.inference.corpus", "RawPage"),
+    "BatchingService": ("page_segmentation_tpu_torch.inference.server", "BatchingService"),
+    "PredictionServer": ("page_segmentation_tpu_torch.inference.server", "PredictionServer"),
     "cc_min_label": ("page_segmentation_tpu_torch.ops.cuda_cc", "cc_min_label"),
     "cc_min_label_batch": ("page_segmentation_tpu_torch.ops.cuda_cc", "cc_min_label_batch"),
     "cc_vote_batch": ("page_segmentation_tpu_torch.ops.cuda_cc", "cc_vote_batch"),

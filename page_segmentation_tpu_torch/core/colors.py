@@ -1,23 +1,39 @@
-"""RGB <-> label codec: the part of ``ColorMap`` the predict path needs.
+"""RGB <-> label codec: the part of ``ColorMap`` the predict and evaluate
+paths need, including the JSON "image map" reader (``--color_map``).
 
-The on-disk JSON form and the RGB -> label direction stay in the JAX
-package until a later slice needs them here.
+The on-disk JSON form maps a stringified RGB tuple to ``[index, label]``::
+
+    {"(255, 255, 255)": [0, "background"], "(255, 0, 0)": [1, "paragraph"]}
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+import json
+from typing import Dict, Mapping, Tuple, Union
 
 import numpy as np
 
 RGBColor = Tuple[int, int, int]
+ColorKey = Union[str, RGBColor]
+
+
+def _parse_color(key: ColorKey) -> RGBColor:
+    if isinstance(key, str):
+        parts = [p for p in key.strip().strip("()[]").replace(",", " ").split() if p]
+        if len(parts) != 3:
+            raise ValueError(f"Cannot parse color key {key!r}")
+        return tuple(int(p) for p in parts)  # type: ignore[return-value]
+    color = tuple(int(c) for c in key)
+    if len(color) != 3:
+        raise ValueError(f"Color must have 3 components, got {key!r}")
+    return color  # type: ignore[return-value]
 
 
 class ColorMap:
     """Mapping between RGB colors, integer labels and label names."""
 
-    def __init__(self, mapping: Mapping[RGBColor, Tuple[int, str]]):
+    def __init__(self, mapping: Mapping[ColorKey, Tuple[int, str]]):
         self._color_to_entry: Dict[RGBColor, Tuple[int, str]] = {
-            tuple(int(c) for c in color): (int(index), str(label))
+            _parse_color(color): (int(index), str(label))
             for color, (index, label) in mapping.items()
         }
         self._index_to_color: Dict[int, RGBColor] = {}
@@ -29,6 +45,12 @@ class ColorMap:
 
     def __len__(self) -> int:
         return len(self._color_to_entry)
+
+    @classmethod
+    def load(cls, path) -> "ColorMap":
+        with open(path, "r") as f:
+            raw = json.load(f)
+        return cls({k: (v[0], v[1]) for k, v in raw.items()})
 
     @property
     def n_classes(self) -> int:
@@ -49,6 +71,25 @@ class ColorMap:
         pal = self.palette
         clipped = np.clip(np.asarray(labels).astype(np.int64), 0, pal.shape[0] - 1)
         return pal[clipped]
+
+    def to_labels(self, rgb: np.ndarray) -> np.ndarray:
+        """RGB image -> int32 label image; unknown colors map to 0, and a
+        gray (H, W) image is taken as labels."""
+        rgb = np.asarray(rgb)
+        if rgb.ndim == 2:
+            return rgb.astype(np.int32)
+        rgb = rgb[..., :3]
+        packed = (rgb[..., 0].astype(np.int64) << 16 | rgb[..., 1].astype(np.int64) << 8
+                  | rgb[..., 2].astype(np.int64))
+        out = np.zeros(rgb.shape[:-1], dtype=np.int32)
+        for (r, g, b), (index, _label) in self._color_to_entry.items():
+            out[packed == (r << 16 | g << 8 | b)] = index
+        return out
+
+    def imread_labels(self, path) -> np.ndarray:
+        from .image_io import imread_rgb
+
+        return self.to_labels(imread_rgb(path))
 
 
 DEFAULT_IMAGE_MAP = ColorMap(

@@ -1,10 +1,12 @@
-"""Image reading and writing for the per-page predict path.
+"""Image reading and writing for the predict paths.
 
 Counterpart of the part of ``page_segmentation_tpu/core/image_io.py`` that
-the path uses: ``imread``, ``imread_bin``, ``encode_png``, ``imsave`` and
-``imsave_indexed``.  The writers need neither PIL nor cv2: PNGs are written
-here with filter-0 rows through ``zlib`` (8-bit gray, 8-bit RGB, and indexed
-at the smallest legal bit depth), and decode to the same pixels as the JAX
+the paths use: ``imread``, ``imread_rgb``, ``imread_bin``, ``encode_png``,
+``imsave``, ``imsave_indexed``, and the 1-bit pair ``imsave_bilevel`` /
+``imread_bilevel_packed`` of the raw corpus's packed-binary mode.  The
+writers need neither PIL nor cv2: PNGs are written here with filter-0 rows
+through ``zlib`` (1-bit gray, 8-bit gray, 8-bit RGB, and indexed at the
+smallest legal bit depth), and decode to the same pixels as the JAX
 package's writers.  The readers decode such non-interlaced filter-0 PNGs
 through ``zlib`` too (:func:`decode_png_unfiltered`) and hand every other
 file to PIL, imported where it is needed; PIL's pixel contract holds either
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 import struct
 import zlib
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -58,12 +60,11 @@ def _unpack_msb(packed: np.ndarray, w: int, depth: int) -> np.ndarray:
     return np.ascontiguousarray(expanded[:, :w])
 
 
-def decode_png_unfiltered(data: bytes):
-    """(pixels, palette) of a non-interlaced PNG whose rows all carry filter
-    0: 8-bit gray (H, W), 1-bit gray expanded to 0/255, 8-bit RGB (H, W, 3),
-    or indexed at depth 1/2/4/8 (labels (H, W) with its (n, 3) palette;
-    palette None for the others).  None for any other PNG, and for bytes
-    that are not one (truncated or malformed input included)."""
+def _png_rows(data: bytes):
+    """(header, palette, rows (H, row bytes)) of a non-interlaced PNG whose
+    rows all carry filter 0, the filter bytes stripped; ``header`` is IHDR's
+    (w, h, depth, color_type).  None for any other PNG, and for bytes that
+    are not one (truncated or malformed input included)."""
     if len(data) < 8 or data[:8] != _PNG_MAGIC:
         return None
     pos, header, palette, idat = 8, None, None, []
@@ -98,7 +99,19 @@ def decode_png_unfiltered(data: bytes):
         return None
     if rows[:, 0].any():  # filtered rows: not this decoder's
         return None
-    rows = rows[:, 1:]
+    return (w, h, depth, color_type), palette, rows[:, 1:]
+
+
+def decode_png_unfiltered(data: bytes):
+    """(pixels, palette) of a non-interlaced PNG whose rows all carry filter
+    0: 8-bit gray (H, W), 1-bit gray expanded to 0/255, 8-bit RGB (H, W, 3),
+    or indexed at depth 1/2/4/8 (labels (H, W) with its (n, 3) palette;
+    palette None for the others).  None for any other PNG, and for bytes
+    that are not one (truncated or malformed input included)."""
+    got = _png_rows(data)
+    if got is None:
+        return None
+    (w, h, depth, color_type), palette, rows = got
     if color_type == 2:
         return np.ascontiguousarray(rows).reshape(h, w, 3), None
     pixels = np.ascontiguousarray(rows[:, :w]) if depth == 8 else _unpack_msb(rows, w, depth)
@@ -142,6 +155,24 @@ def imread(path, as_gray: bool = False) -> np.ndarray:
     """Read an image as uint8; grayscale (H, W) when ``as_gray``."""
     with open(str(path), "rb") as f:
         return decode_image_bytes(f.read(), as_gray=as_gray)
+
+
+def imread_rgb(path) -> np.ndarray:
+    return imread(path, as_gray=False)
+
+
+def image_shape(path) -> Tuple[int, int]:
+    """(H, W) of an image from its header alone: a PNG's IHDR, or PIL's lazy
+    open for other formats."""
+    with open(str(path), "rb") as f:
+        head = f.read(24)
+    if head[:8] == _PNG_MAGIC and head[12:16] == b"IHDR":
+        w, h = struct.unpack(">II", head[16:24])
+        return h, w
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return im.height, im.width
 
 
 def imread_bin(path, binarize: bool = True, threshold: int = 128) -> np.ndarray:
@@ -206,3 +237,30 @@ def imsave_indexed(path, labels: np.ndarray, palette: np.ndarray) -> None:
             packed |= padded[:, i::k] << np.uint8((k - 1 - i) * depth)
     with open(str(path), "wb") as f:
         f.write(_png_bytes(packed, w, depth, 3, palette=palette))
+
+
+def imsave_bilevel(path, binary: np.ndarray) -> None:
+    """Write a binarized page as a 1-bit gray PNG (nonzero -> white), rows
+    MSB-first with filter 0 at zlib level 6: the layout whose rows
+    :func:`imread_bilevel_packed` hands back without expanding them.  Any
+    decoder reads it as 0/255."""
+    arr = np.asarray(binary)
+    with open(str(path), "wb") as f:
+        f.write(_png_bytes(np.packbits(arr != 0, axis=-1), arr.shape[1], 1, 0, level=6))
+
+
+def imread_bilevel_packed(path) -> Optional[Tuple[np.ndarray, int]]:
+    """(packed rows (H, ceil(W/8)) uint8 MSB-first, W) of a 1-bit gray
+    filter-0 PNG (the :func:`imsave_bilevel` layout); None for any other
+    file, malformed or truncated ones included, which callers read through
+    the expanding decoders.  Bit 1 is white paper and bit 0 ink, so ink is
+    ``bit == 0``: the ``< 128`` contract on 0/255 pixels."""
+    try:
+        with open(str(path), "rb") as f:
+            got = _png_rows(f.read())
+    except OSError:
+        return None
+    if got is None or got[0][2:] != (1, 0):
+        return None
+    (w, _h, _depth, _color_type), _palette, rows = got
+    return np.ascontiguousarray(rows), w

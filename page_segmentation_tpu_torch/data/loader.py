@@ -7,14 +7,13 @@ training (ROADMAP queue 1 item 11) and raise here.
 from __future__ import annotations
 
 import copy
-import struct
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, List, Optional
 
 import numpy as np
 
 from ..core.colors import ColorMap
-from ..core.image_io import imread, imread_bin
+from ..core.image_io import image_shape, imread, imread_bin
 from .dataset import Dataset, SingleData
 from .prepare import prepare_images, prepared_shape
 
@@ -74,18 +73,9 @@ class DatasetLoader:
 
     def peek_prepared_shape(self, entry: SingleData):
         """The shape :meth:`load_images` would produce, from the image
-        header alone: a PNG's IHDR, or PIL's lazy open for other formats."""
-        path = entry.binary_path or entry.image_path
-        with open(path, "rb") as f:
-            head = f.read(24)
-        if head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR":
-            w, h = struct.unpack(">II", head[16:24])
-        else:
-            from PIL import Image
-
-            with Image.open(path) as im:
-                w, h = im.size
-        return prepared_shape((h, w), self.target_line_height, entry.line_height_px, self.max_width)
+        header alone (:func:`image_shape`)."""
+        return prepared_shape(image_shape(entry.binary_path or entry.image_path),
+                              self.target_line_height, entry.line_height_px, self.max_width)
 
     def load_lazy(self, entry: SingleData) -> SingleData:
         """Materialize a lazy entry into a shallow copy; the source keeps

@@ -1,0 +1,1 @@
+"""evaluation of the PyTorch/CUDA port (mirrors page_segmentation_tpu.evaluation)."""

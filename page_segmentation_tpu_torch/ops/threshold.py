@@ -1,6 +1,6 @@
-"""Otsu binarization (cv2's THRESH_BINARY + THRESH_OTSU convention): a copy
-of ``page_segmentation_tpu/ops/threshold.py`` ``otsu_threshold`` and
-``otsu_binarize``."""
+"""Binarization: a copy of ``page_segmentation_tpu/ops/threshold.py``
+``otsu_threshold`` and ``otsu_binarize`` (cv2's THRESH_BINARY + THRESH_OTSU
+convention) and ``binarize_into``."""
 from __future__ import annotations
 
 import numpy as np
@@ -29,3 +29,19 @@ def otsu_binarize(gray: np.ndarray, invert: bool = False) -> np.ndarray:
     unless ``invert``, the result is subtracted from 255."""
     binary = np.where(np.asarray(gray) > otsu_threshold(gray), np.uint8(255), np.uint8(0))
     return binary if invert else (255 - binary).astype(np.uint8)
+
+
+def binarize_into(gray: np.ndarray, out: np.ndarray, threshold: int = 128) -> np.ndarray:
+    """Write ``gray >= threshold -> 255 else 0`` into the uint8 ``out`` without
+    temporaries (``imread_bin``'s rule); the raw corpus binarizes decoded
+    pages straight into its reusable buffers.  ``threshold =
+    otsu_threshold(gray) + 1`` is the Otsu convention (pixels strictly above
+    the threshold become 255)."""
+    if out.dtype != np.uint8 or out.shape != gray.shape:
+        raise ValueError(f"out must be uint8 of shape {gray.shape}")
+    if out.flags.c_contiguous:
+        np.greater_equal(gray, threshold, out=out.view(np.bool_))
+        np.multiply(out, 255, out=out)
+    else:
+        out[...] = np.where(gray >= threshold, np.uint8(255), np.uint8(0))
+    return out

@@ -1,33 +1,37 @@
-"""Reading the JAX package's checkpoint directories, without flax or msgpack.
+"""The JAX package's checkpoint directories, read and written without flax or
+msgpack.
 
-Counterpart of the read half of ``page_segmentation_tpu/train/checkpoint.py``:
+Counterpart of ``save_checkpoint`` and ``load_checkpoint`` in
+``page_segmentation_tpu/train/checkpoint.py``:
 
-    <dir>/params.msgpack   the variables, written by flax's msgpack_serialize
+    <dir>/params.msgpack   the variables, as flax's msgpack_serialize writes them
     <dir>/meta.json        architecture, n_classes, ...
 
 :func:`load_checkpoint` returns ``(variables, meta)`` with ``variables``
 always holding a ``"params"`` tree of numpy arrays, the layout that
-``models/bridge.py`` ``params_from_jax`` takes.
+``models/bridge.py`` ``params_from_jax`` takes; :func:`save_checkpoint`
+writes such a tree, so each package reads the other's checkpoints.
 
-:func:`msgpack_restore` decodes the subset of msgpack that flax writes:
-maps, arrays, str, bin, nil, bool, ints, floats, and flax's ext types (1: an
-ndarray as the msgpack triple (shape, dtype name, row-major bytes); 2: a
-complex as (real, imag); 3: a numpy scalar, packed as an ndarray), plus
-flax's chunked form of arrays over 1 GiB.  numpy has no bfloat16, so a
-bfloat16 array comes back widened exactly to float32.  Saving, and the
-optimizer state, come with training (ROADMAP queue 1 item 11).
+:func:`msgpack_restore` and :func:`msgpack_serialize` cover the subset of
+msgpack that flax writes: maps, arrays, str, bin, nil, bool, ints, floats,
+and flax's ext types (1: an ndarray as the msgpack triple (shape, dtype
+name, row-major bytes); 2: a complex as (real, imag); 3: a numpy scalar,
+packed as an ndarray), plus flax's chunked form of arrays over 1 GiB.  numpy
+has no bfloat16, so a bfloat16 array comes back widened exactly to float32.
+The optimizer state comes with training (ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 
 import json
 import os
 import struct
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 _CHUNKED = "__msgpack_chunked_array__"
+MAX_CHUNK_SIZE = 2 ** 30  # bytes: flax splits larger arrays into chunks of this size
 
 # fixed-size scalars: first byte -> struct format (big-endian)
 _SCALARS = {0xCA: ">f", 0xCB: ">d", 0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">Q",
@@ -144,6 +148,156 @@ def msgpack_restore(encoded: bytes):
     lists (flax's tuples come back as lists, as with flax's own restore),
     Python scalars and numpy arrays."""
     return _unchunk(_unpack_all(encoded))
+
+
+def _header(n: int, small: int, fix: int, wide: Tuple[Tuple[int, int, str], ...]) -> bytes:
+    """A length header: ``fix | n`` below ``small``, else the first of
+    ``wide`` = ((type byte, limit, struct format), ...) whose limit n is under."""
+    if n < small:
+        return bytes([fix | n])
+    for byte, limit, fmt in wide:
+        if n < limit:
+            return bytes([byte]) + struct.pack(fmt, n)
+    raise ValueError(f"length {n} does not fit msgpack")
+
+
+_STR = ((0xD9, 1 << 8, ">B"), (0xDA, 1 << 16, ">H"), (0xDB, 1 << 32, ">I"))
+_BIN = ((0xC4, 1 << 8, ">B"), (0xC5, 1 << 16, ">H"), (0xC6, 1 << 32, ">I"))
+_ARRAY = ((0xDC, 1 << 16, ">H"), (0xDD, 1 << 32, ">I"))
+_MAP = ((0xDE, 1 << 16, ">H"), (0xDF, 1 << 32, ">I"))
+_EXT = ((0xC7, 1 << 8, ">B"), (0xC8, 1 << 16, ">H"), (0xC9, 1 << 32, ">I"))
+_FIXEXT_BYTE = {n: byte for byte, n in _FIXEXT.items()}
+
+
+def _pack_int(n: int) -> bytes:
+    """msgpack's shortest form of an int, as the msgpack package writes it."""
+    if 0 <= n < 0x80 or -0x20 <= n < 0:
+        return struct.pack(">b" if n < 0 else ">B", n)
+    widths = ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")) if n > 0 else (
+        (0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q"))
+    for byte, fmt in widths:
+        try:
+            return bytes([byte]) + struct.pack(fmt, n)
+        except struct.error:
+            continue
+    raise OverflowError(f"{n} does not fit a 64-bit msgpack int")
+
+
+def _pack_ext(code: int, data: bytes) -> bytes:
+    if len(data) in _FIXEXT_BYTE:
+        head = bytes([_FIXEXT_BYTE[len(data)]])
+    else:
+        head = _header(len(data), 0, 0, _EXT)
+    return head + struct.pack(">b", code) + data
+
+
+def _ndarray_bytes(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes cannot be serialized")
+    return _packb((arr.shape, arr.dtype.name, arr.tobytes("C")))
+
+
+def _pack(obj, out: list) -> None:
+    """Append the msgpack bytes of ``obj`` to ``out``: msgpack's encoding
+    with strict types (a float or int subclass, such as a numpy scalar, is
+    not a float or int) and flax's ext types."""
+    kind = type(obj)
+    if obj is None:
+        out.append(b"\xc0")
+    elif kind is bool:
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif kind is int:
+        out.append(_pack_int(obj))
+    elif kind is float:
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif kind is str:
+        data = obj.encode("utf-8")
+        out += [_header(len(data), 32, 0xA0, _STR), data]
+    elif kind is bytes:
+        out += [_header(len(obj), 0, 0, _BIN), obj]
+    elif kind in (list, tuple):
+        out.append(_header(len(obj), 16, 0x90, _ARRAY))
+        for item in obj:
+            _pack(item, out)
+    elif kind is dict:
+        out.append(_header(len(obj), 16, 0x80, _MAP))
+        for key, value in obj.items():
+            _pack(key, out)
+            _pack(value, out)
+    elif isinstance(obj, np.ndarray):
+        out.append(_pack_ext(_EXT_NDARRAY, _ndarray_bytes(obj)))
+    elif isinstance(obj, np.generic):
+        out.append(_pack_ext(_EXT_NPSCALAR, _ndarray_bytes(np.asarray(obj))))
+    elif kind is complex:
+        out.append(_pack_ext(_EXT_COMPLEX, _packb((obj.real, obj.imag))))
+    else:
+        raise TypeError(f"cannot serialize {kind.__name__} to msgpack")
+
+
+def _packb(obj) -> bytes:
+    out: list = []
+    _pack(obj, out)
+    return b"".join(out)
+
+
+def _chunked(arr: np.ndarray):
+    """flax's chunked form of an array above MAX_CHUNK_SIZE bytes."""
+    if arr.nbytes <= MAX_CHUNK_SIZE:
+        return arr
+    size = max(1, int(MAX_CHUNK_SIZE / arr.dtype.itemsize))
+    flat = arr.reshape(-1)
+    chunks = [flat[i : i + size] for i in range(0, flat.size, size)]
+    return {_CHUNKED: True,
+            "shape": {str(i): n for i, n in enumerate(arr.shape)},
+            "chunks": {str(i): c for i, c in enumerate(chunks)}}
+
+
+def _sorted(tree):
+    """A copy with every dict's keys sorted, as flax's pytree copy makes."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_sorted(v) for v in tree)
+    return tree
+
+
+def _chunk_leaves(tree):
+    """Arrays chunked where flax chunks them: dict values and the top."""
+    if isinstance(tree, dict):
+        return {k: _chunk_leaves(v) for k, v in tree.items()}
+    return _chunked(tree) if isinstance(tree, np.ndarray) else tree
+
+
+def msgpack_serialize(tree) -> bytes:
+    """The bytes ``flax.serialization.msgpack_serialize`` writes for a tree
+    of dicts, lists, Python scalars and numpy arrays (a tuple, which flax
+    refuses there, is written as a list)."""
+    return _packb(_chunk_leaves(_sorted(tree)))
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_numpy(v) for v in tree)
+    return tree if tree is None else np.asarray(tree)
+
+
+def save_checkpoint(path: str, variables, meta: Optional[Dict[str, Any]] = None,
+                    opt_state=None) -> None:
+    """Write ``variables`` (a collection dict with ``"params"``, or a bare
+    params tree; numpy arrays or CPU tensors as leaves) and ``meta`` as the
+    JAX package's ``save_checkpoint`` does: every leaf as an ndarray."""
+    if opt_state is not None:
+        raise NotImplementedError(
+            "saving the optimizer state comes with training: ROADMAP queue 1 item 11")
+    if not isinstance(variables, dict) or "params" not in variables:
+        variables = {"params": variables}
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "params.msgpack"), "wb") as f:
+        f.write(msgpack_serialize(_to_numpy(dict(variables))))
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta or {}, f, indent=2, default=str)
 
 
 def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
