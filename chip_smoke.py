@@ -24,7 +24,11 @@ the kernels' launch counts set to 0 just before it and read just after:
   vote);
 * the HTTP service: ``PredictionServer`` over ``BatchingService`` on
   localhost, its fused route under concurrent clients and its spline route
-  (device vote).
+  (device vote);
+* the training path: A4 pages with color masks written as PNGs, the CLI's
+  ``create-dataset-file`` and ``train`` (3 epochs at batch 8), steady train
+  steps timed on the card, one float32 step held against the CPU, and an
+  epoch with device augmentation.
 
 Then it checks what comes out.  Prints one line per phase, then a JSON line
 of per-kernel measurements, and as the last line
@@ -62,6 +66,10 @@ SERVE_PAGES = 64
 SERVE_CLIENTS = 8
 SERVE_BATCH = 16
 SPLINE_PAGES = 16          # one batch of the spline serve route
+TRAIN_PAGES = 40           # the training phase: 32 train + 8 test pages
+TRAIN_BATCH = 8
+TRAIN_EPOCHS = 3
+STEADY_STEPS = 50
 DEVICE = "cuda"
 
 
@@ -1101,17 +1109,275 @@ def phase_serve(pages, model: str):
     return serve
 
 
-def phase_profile(tp, pages, binaries):
-    """torch.profiler over one more run of the main path: device time by
-    kernel, and the share of the run's wall time in which the device ran
-    no kernel and no copy (its idle share)."""
+def layout_labels(i: int, h: int, w: int) -> np.ndarray:
+    """The class map of ``synthesize_pages``' page ``i``: its text lines
+    (each row of glyph blocks, across the text column) as text (1), the
+    figure block of every third page as image (2), the rest background."""
+    line_height = 50
+    labels = np.zeros((h, w), np.uint8)
+    col_starts = np.arange(w // 10, w - w // 10 - 25, 35)
+    for row in np.arange(h // 8, h - h // 8 - line_height, int(line_height * 1.6)):
+        labels[row : row + line_height, col_starts[0] : col_starts[-1] + 25] = 1
+    if i % 3 == 0:
+        labels[int(h * 0.7) : int(h * 0.85), int(w * 0.2) : int(w * 0.8)] = 2
+    return labels
+
+
+def _write_training_set(root: str, pages, binaries):
+    """``create-dataset-file``'s layout under ``root``: 8-bit images, 1-bit
+    binaries and RGB color masks, written by the port in parallel."""
+    import os
+
+    from page_segmentation_tpu_torch.core.colors import DEFAULT_IMAGE_MAP
+    from page_segmentation_tpu_torch.core.image_io import imsave, imsave_bilevel
+    from page_segmentation_tpu_torch.data.dataset import io_pool
+
+    for sub in ("images", "binary_images", "masks"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+
+    def write(i):
+        name = f"page{i:03d}.png"
+        imsave(os.path.join(root, "images", name), pages[i])
+        imsave_bilevel(os.path.join(root, "binary_images", name), binaries[i])
+        imsave(os.path.join(root, "masks", name),
+               DEFAULT_IMAGE_MAP.to_rgb_array(layout_labels(i, *pages[i].shape)))
+
+    list(io_pool().map(write, range(len(pages))))
+
+
+def phase_train(pages, binaries, work: str):
+    """The training path on TRAIN_PAGES A4 pages at the full width of
+    FCNSkip (3 classes, weights init_params_numpy(3, SEED)): the CLI's
+    create-dataset-file and train (float32, TF32 as PyTorch sets it), the
+    checkpoint decoded and predicted with, STEADY_STEPS steps timed between
+    CUDA events, one step with TF32 off held against the CPU, and one epoch
+    with device augmentation."""
+    import os
+
+    from page_segmentation_tpu_torch.cli.main import main as cli
+    from page_segmentation_tpu_torch.data.augment_device import (
+        DeviceAugmentConfig,
+        _warp,
+        augment_batch_on_device,
+    )
+    from page_segmentation_tpu_torch.inference.classifier import PixelClassifier
+    from page_segmentation_tpu_torch.models.bridge import _layer_shapes, params_from_jax
+    from page_segmentation_tpu_torch.models.fcn import FCNSkip
+    from page_segmentation_tpu_torch.models.registry import Architecture, Optimizers
+    from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
+    from page_segmentation_tpu_torch.train import trainer as trainer_module
+    from page_segmentation_tpu_torch.train.checkpoint import load_checkpoint, load_opt_state
+    from page_segmentation_tpu_torch.train.metrics import loss as ce_loss
+    from page_segmentation_tpu_torch.train.steps import make_step_fns
+
+    # PyTorch's defaults, as a fresh `train` CLI process has them (earlier
+    # phases turned TF32 off and cuDNN deterministic)
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tf32 = {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    data_dir, out = os.path.join(work, "train_set"), os.path.join(work, "train_out")
+    t0 = time.perf_counter()
+    _write_training_set(data_dir, pages[:TRAIN_PAGES], binaries[:TRAIN_PAGES])
+    write_s = time.perf_counter() - t0
+    split = os.path.join(work, "train_set.json")
+    n_test = TRAIN_PAGES // 5
+    rc = cli(["create-dataset-file", "--dataset_path", data_dir, "--character_height", str(LINE_HEIGHT),
+              "--n_train", str(TRAIN_PAGES - n_test), "--n_test", str(n_test), "--output_file", split])
+    with open(split) as f:
+        counts = {k: len(v) for k, v in json.load(f).items()}
+    if rc != 0 or counts != {"train": TRAIN_PAGES - n_test, "test": n_test, "eval": 0}:
+        raise AssertionError(f"create-dataset-file returned {rc}, splits {counts}")
+    log(f"phase train: {TRAIN_PAGES} A4 pages with color masks written in {write_s:.2f} s; "
+        f"create-dataset-file: {counts}; TF32 {tf32}")
+
+    # the CLI run, with the Trainer it builds kept for the timings
+    built = []
+
+    class Recorded(trainer_module.Trainer):
+        def __init__(self, settings):
+            built.append(time.perf_counter())
+            super().__init__(settings)
+            built.append(self)
+
+    cuda_cc.launches = cuda_add_one.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    trainer_module.Trainer, plain_trainer = Recorded, trainer_module.Trainer
+    t0 = time.perf_counter()
+    try:
+        rc = cli(["train", "--device", DEVICE, "--split_file", split, "--output", out,
+                  "--batch_size", str(TRAIN_BATCH), "--n_epoch", str(TRAIN_EPOCHS), "--l_rate", "1e-3",
+                  "--target_line_height", "6"])
+        torch.cuda.synchronize()
+    finally:
+        trainer_module.Trainer = plain_trainer
+    cli_s = time.perf_counter() - t0
+    launches = {"cc_label": cuda_cc.launches, "add_one": cuda_add_one.launches}
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    loader_s, trainer = built[0] - t0, built[1]
+    with open(os.path.join(out, "scalars.jsonl")) as f:
+        scalars = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in scalars]
+    if rc != 0 or len(losses) != TRAIN_EPOCHS or not losses[-1] < losses[0]:
+        raise AssertionError(f"train returned {rc}, epoch losses {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"kernels launched on the train path: {launches}")
+    epochs = [{"epoch": t["epoch"], "pages_per_s": t["pages"] / t["train_s"], "train_s": t["train_s"],
+               "val_s": t["eval_s"], "checkpoint_s": t["save_s"]} for t in trainer.timings]
+    log(f"  train CLI: {cli_s:.2f} s in all, loader {loader_s:.2f} s; epoch losses "
+        f"{[round(v, 5) for v in losses]}, val losses {[round(r['val_loss'], 5) for r in scalars]}; "
+        f"peak CUDA memory {peak_mb:.1f} MiB; launches {launches}")
+    for e in epochs:
+        log(f"  epoch {e['epoch']}: {trainer.timings[e['epoch']]['pages']} pages in {e['train_s'] * 1e3:.1f} ms "
+            f"= {e['pages_per_s']:.2f} pages/s; validation {e['val_s'] * 1e3:.1f} ms; "
+            f"checkpoint {e['checkpoint_s'] * 1e3:.1f} ms")
+
+    # the checkpoint: the expected trees, and a prediction with it
+    model = os.path.join(out, "model")
+    variables, meta = load_checkpoint(model)
+    shapes = {k: v["kernel"].shape for k, v in variables["params"].items()}
+    if shapes != _layer_shapes(3) or meta.get("epoch") is None:
+        raise AssertionError(f"checkpoint kernels {shapes}, meta {meta}")
+    template = trainer.optimizer.state_dict(trainer.optimizer.init(params_from_jax(variables["params"])))
+    opt_state = load_opt_state(model, template=template)
+    steps = (meta["epoch"] + 1) * -(-(TRAIN_PAGES - n_test) // TRAIN_BATCH)
+    if int(opt_state["count"]) != steps:
+        raise AssertionError(f"opt_state count {opt_state['count']}, {steps} steps to epoch {meta['epoch']}")
+    data = trainer.settings.validation_data.data
+    _, prob, pred = PixelClassifier(3, model_path=model, device=DEVICE).predict_single_data(data[0])
+    if pred.shape != data[0].image.shape or not np.isfinite(prob).all():
+        raise AssertionError(f"prediction shape {pred.shape}")
+    log(f"  checkpoint of epoch {meta['epoch']}: params {len(shapes)} layers, opt_state in optax's Adam "
+        f"layout with count {int(opt_state['count'])}; PixelClassifier predicts {pred.shape} with it")
+
+    # steady steps on one uploaded batch
+    train_pages = trainer.settings.train_data.data[:TRAIN_BATCH]
+    build_ms, upload_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        host = trainer._make_batch(train_pages, augment=False, rng=None)
+        staged = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory() for k, v in host.items()}
+        t1 = time.perf_counter()
+        batch = {k: v.to(DEVICE, non_blocking=True) for k, v in staged.items()}
+        torch.cuda.synchronize()
+        build_ms.append((t1 - t0) * 1e3)
+        upload_ms.append((time.perf_counter() - t1) * 1e3)
+    batch = trainer._take_batch(trainer._place_batch(host))
+    shape = tuple(batch["image"].shape)
+    params, opt = dict(trainer._live()), trainer.opt_state
+    for _ in range(3):
+        params, _, opt, _ = trainer._train_step(params, {}, opt, batch, None)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(STEADY_STEPS):
+        params, _, opt, metrics = trainer._train_step(params, {}, opt, batch, None)
+        trainer._assign(params)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / STEADY_STEPS
+    host_step_ms = (time.perf_counter() - t0) * 1e3 / STEADY_STEPS
+    log(f"  steady train_step at batch {TRAIN_BATCH} on {shape}: {step_ms:.3f} ms a step (CUDA events; "
+        f"host clock {host_step_ms:.3f}) = {TRAIN_BATCH / step_ms * 1e3:.2f} pages/s; host batch build "
+        f"(pad, pin) {min(build_ms):.3f} ms, upload {min(upload_ms):.3f} ms (best of 5)")
+
+    # where a step's device time goes, and the card's idle share in an epoch
+    def steps():
+        state = (params, opt)
+        for _ in range(5):
+            new, _, o, _ = trainer._train_step(state[0], {}, state[1], batch, None)
+            state = (new, o)
+
+    wall_us, busy_us, by_name, _ = profiled(steps)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"  profile of 5 steps: device busy {busy_us / 5e3:.3f} ms a step of {wall_us / 5e3:.3f} ms, "
+        f"{len(by_name)} kernel names; top: " + "; ".join(
+            f"{us / 5e3:.3f} ms {name[:60]}" for name, us in top))
+    epoch_settings = trainer.settings._replace(n_epoch=1, validation_data=None, evaluation_data=None,
+                                               output_dir=os.path.join(work, "train_profiled"))
+    epoch_trainer = plain_trainer(epoch_settings)
+    e_wall, e_busy, _, _ = profiled(epoch_trainer.train)
+    idle_share = 1 - e_busy / e_wall
+    log(f"  profile of one epoch ({TRAIN_PAGES - n_test} pages, checkpoint included): {e_wall / 1e3:.1f} ms, "
+        f"device busy {e_busy / 1e3:.1f} ms, idle share {idle_share:.4f}")
+
+    # one float32 step from the checkpoint's weights, TF32 off, on the card
+    # and on the CPU
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        jax_tree = variables["params"]
+        grads = {}
+        for device in (DEVICE, "cpu"):
+            step, _ = make_step_fns(FCNSkip(3).to(device), Optimizers.ADAM.make(1e-3), ce_loss,
+                                    device_preprocess=Architecture.FCN_SKIP.device_preprocess())
+            p = {k: v.to(device) for k, v in params_from_jax(jax_tree).items()}
+            b = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in host.items()}
+            loss_value, g = step.value_and_grad(p, {}, b)
+            grads[device] = (float(loss_value), {k: v.double().cpu() for k, v in g.items()})
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32["cudnn.allow_tf32"]
+        torch.backends.cuda.matmul.allow_tf32 = tf32["cuda.matmul.allow_tf32"]
+    (card_loss, card_g), (cpu_loss, cpu_g) = grads[DEVICE], grads["cpu"]
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    rel = {k: float((card_g[k] - cpu_g[k]).norm() / cpu_g[k].norm().clamp_min(1e-30)) for k in cpu_g}
+    worst = max(rel, key=rel.get)
+    grad_rel = rel[worst]
+    log(f"  card vs CPU, one float32 step from the checkpoint (TF32 off): loss {card_loss:.8f} vs "
+        f"{cpu_loss:.8f} (rel {loss_rel:.3e}); largest gradient difference {grad_rel:.3e} of the "
+        f"leaf's norm ({worst}); {time.perf_counter() - t0:.2f} s")
+    if loss_rel > 1e-5 or grad_rel > 1e-3:
+        raise AssertionError(f"card vs CPU: loss rel {loss_rel}, gradient rel {grad_rel}")
+
+    # device augmentation: an epoch through the Trainer, then the warp's checks
+    aug_settings = trainer.settings._replace(n_epoch=1, data_augmentation=True, device_augmentation=True,
+                                             validation_data=None, evaluation_data=None,
+                                             output_dir=os.path.join(work, "train_aug"))
+    t0 = time.perf_counter()
+    aug_history = plain_trainer(aug_settings).train()
+    torch.cuda.synchronize()
+    aug_s = time.perf_counter() - t0
+    images = trainer.preprocess(host["image"].astype(np.float32))
+    fimage = torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(DEVICE)
+    generator = torch.Generator(device=DEVICE).manual_seed(SEED)
+    _, binary_a, mask_a = augment_batch_on_device(generator, fimage, batch["binary"], batch["mask"],
+                                                  DeviceAugmentConfig(horizontal_flip=True))
+    for i in range(mask_a.shape[0]):
+        if not set(mask_a[i].unique().tolist()) <= set(batch["mask"][i].unique().tolist()):
+            raise AssertionError(f"page {i}: warped mask classes outside the page's")
+    identity = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], device=DEVICE).expand(shape[0], 2, 3)
+    if not (torch.equal(_warp(batch["mask"], identity, 0), batch["mask"])
+            and torch.equal(_warp(fimage[..., 0], identity, 1), fimage[..., 0])):
+        raise AssertionError("the identity warp changed its input")
+    log(f"  device augmentation: one epoch in {aug_s:.2f} s, loss {aug_history['loss'][0]:.5f}; warped "
+        f"mask classes within each page's, identity warp exact")
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase train: {phase_s:.1f} s")
+    return {"launches": launches, "epochs": epochs, "loader_s": loader_s, "cli_s": cli_s,
+            "phase_s": phase_s, "step_device_busy_ms": busy_us / 5e3,
+            "step_top_kernels_ms": {name[:80]: us / 5e3 for name, us in top},
+            "epoch_idle_share": idle_share,
+            "peak_mib": peak_mb, "step_ms": step_ms, "host_step_ms": host_step_ms,
+            "steady_pages_per_s": TRAIN_BATCH / step_ms * 1e3, "batch_build_ms": min(build_ms),
+            "upload_ms": min(upload_ms), "batch_shape": list(shape), "losses": losses,
+            "card_vs_cpu": {"loss_rel": loss_rel, "grad_rel_max": grad_rel, "grad_rel_max_leaf": worst}, "tf32": tf32,
+            "device_augmentation_epoch_s": aug_s}
+
+
+def profiled(fn):
+    """Run ``fn`` under torch.profiler: (wall µs, µs in which the device ran
+    a kernel or a copy, device µs by event name, device event count)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in tp.run(pages, binaries, batch_size=BATCH):
-            pass
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1122,10 +1388,23 @@ def phase_profile(tp, pages, binaries):
     by_name = {}
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    return wall_us, busy_us, by_name, len(device)
+
+
+def phase_profile(tp, pages, binaries):
+    """torch.profiler over one more run of the main path: device time by
+    kernel, and the share of the run's wall time in which the device ran
+    no kernel and no copy (its idle share)."""
+
+    def run():
+        for _ in tp.run(pages, binaries, batch_size=BATCH):
+            pass
+
+    wall_us, busy_us, by_name, n_events = profiled(run)
     total_us = sum(by_name.values())
     log(f"phase profile: {N_PAGES} pages in {wall_us / 1e3:.1f} ms under the profiler; device "
         f"busy {busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}; "
-        f"{len(device)} device events, {total_us / 1e3:.3f} ms of device time")
+        f"{n_events} device events, {total_us / 1e3:.3f} ms of device time")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         log(f"  {us / 1e3:9.3f} ms {us / max(total_us, 1e-9):7.2%}  {name[:110]}")
     cc = {k: sum(us for name, us in by_name.items() if k in name) for k in CC_PASSES}
@@ -1173,6 +1452,7 @@ def main(argv=None) -> int:
     try:
         corpus = phase_corpus(pages, binaries, work)
         serve = phase_serve(pages, corpus["model"])
+        train = phase_train(pages, binaries, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1185,6 +1465,7 @@ def main(argv=None) -> int:
         "serve_client_p50_ms": serve["client_p50_ms"], "serve_client_p99_ms": serve["client_p99_ms"],
         "serve_stats": serve["stats"], "serve_spline_pages_per_s": serve["spline_pages_per_s"],
         "corpus_stages_ms": corpus["stages_ms"], "serve_stages_ms": serve["stages_ms"]}))
+    log("training: " + json.dumps({k: v for k, v in train.items() if k != "launches"}))
     print(json.dumps({"kernels": [{
         "name": "cc_label",
         "route": "cuda",
@@ -1209,7 +1490,8 @@ def main(argv=None) -> int:
                              "corpus_pallas": corpus["pallas_launches"],
                              "predict_fast_cli": corpus["fast_launches"],
                              "serve_fused": serve["fused_launches"],
-                             "serve_spline": serve["spline_launches"]},
+                             "serve_spline": serve["spline_launches"],
+                             "train": train["launches"]["cc_label"]},
         "tiled": kernel["tiled"],
     }, {
         "name": "add_one",
@@ -1220,7 +1502,8 @@ def main(argv=None) -> int:
         "launches": add_one["launches"],
         "launches_by_path": {"throughput": 0, "library": 0, "repro_download": add_one["launches"],
                              "predict_pipeline_cli": 0, "corpus_pallas": 0, "predict_fast_cli": 0,
-                             "serve_fused": 0, "serve_spline": 0},
+                             "serve_fused": 0, "serve_spline": 0,
+                             "train": train["launches"]["add_one"]},
         "max_abs_err": add_one["max_abs_err"],
         "ms": add_one["ms"],
         "plain_ms": add_one["plain_ms"],

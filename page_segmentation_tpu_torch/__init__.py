@@ -13,16 +13,19 @@ CUDA kernel (``csrc/cc_label.cu``).  Users reach them through the raw-corpus
 streamer (``RawCorpusPredictor``), the batching HTTP service
 (``BatchingService``, ``PredictionServer``) and the command line
 (``python -m page_segmentation_tpu_torch.cli``: ``predict``, ``serve``,
-``evaluate``, ``compute-image-normalizations``).  ``tools/repro_download.py``
-checks that downloads come back whole under concurrent uploads, with the
-elementwise kernel ``csrc/add_one.cu``.  Module names mirror the JAX package
+``evaluate``, ``compute-image-normalizations``, ``create-dataset-file``,
+``train``).  The training path (dataset JSON -> ``DatasetLoader`` ->
+``Trainer`` -> checkpoints with the optimizer state, and the ``Network``
+facade) trains FCNSkip with cuDNN's convolutions through autograd.
+``tools/repro_download.py`` checks that downloads come back whole under
+concurrent uploads, with the elementwise kernel ``csrc/add_one.cu``.  Module names mirror the JAX package
 so each counterpart is easy to find.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; a missing card raises rather than falling back.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 from .core.colors import ColorMap, DEFAULT_IMAGE_MAP  # noqa: F401
 from .device import resolve_device  # noqa: F401
@@ -52,6 +55,13 @@ _LAZY = {
     "cc_vote_batch": ("page_segmentation_tpu_torch.ops.cuda_cc", "cc_vote_batch"),
     "add_one": ("page_segmentation_tpu_torch.ops.cuda_add_one", "add_one"),
     "native": ("page_segmentation_tpu_torch.native", None),
+    "Trainer": ("page_segmentation_tpu_torch.train.trainer", "Trainer"),
+    "TrainSettings": ("page_segmentation_tpu_torch.train.trainer", "TrainSettings"),
+    "AugmentationSettings": ("page_segmentation_tpu_torch.train.trainer", "AugmentationSettings"),
+    "Network": ("page_segmentation_tpu_torch.network", "Network"),
+    "Loss": ("page_segmentation_tpu_torch.train.metrics", "Loss"),
+    "Monitor": ("page_segmentation_tpu_torch.train.metrics", "Monitor"),
+    "Optimizers": ("page_segmentation_tpu_torch.models.registry", "Optimizers"),
 }
 
 

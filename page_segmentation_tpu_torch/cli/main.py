@@ -9,14 +9,23 @@ defaults and error behaviour.  Ported subcommands:
     evaluate                       offline metrics of predictions against masks
     compute-image-normalizations   char heights per page
 
-``predict`` and ``serve`` run on the card unless ``--device cpu`` is given.
-``train``, ``create-dataset-file``, ``gen-masks``, ``page-segmentation`` and
-``export`` keep their flags and exit with an error naming the ROADMAP item
-that ports them.  A bare invocation is ``predict``; a user error prints one
-line and returns 2.
+    train                          train from dataset JSON files
+    create-dataset-file            a dataset directory -> dataset JSON splits
+
+``predict``, ``serve`` and ``train`` run on the card unless ``--device cpu``
+is given.  ``gen-masks``, ``page-segmentation`` and ``export``, and the
+options of ``train`` that are not ported (``--distributed``, ``--n_devices``
+> 1, ``--checkpoint_backend orbax``, ``--auto_resume``, ``--export_h5``,
+``--pretrained_encoder``), keep their flags and exit with an error naming
+the ROADMAP item that ports them.  A bare invocation is ``predict``; a user
+error prints one line and returns 2.
 
     python -m page_segmentation_tpu_torch.cli predict --device cpu --load MODEL \\
         --images DIR --binary DIR --char_height 14 --output OUT
+    python -m page_segmentation_tpu_torch.cli create-dataset-file --dataset_path DIR \\
+        --character_height 50 --n_train 0.8 --n_test 0.2 --output_file data.json
+    python -m page_segmentation_tpu_torch.cli train --device cpu --split_file data.json \\
+        --output OUT --n_epoch 10
 """
 from __future__ import annotations
 
@@ -35,6 +44,31 @@ def _load_color_map(path: Optional[str]):
     from ..core.colors import DEFAULT_IMAGE_MAP, ColorMap
 
     return ColorMap.load(path) if path else DEFAULT_IMAGE_MAP
+
+
+def _expand(items):
+    """The files named by ``items``, glob patterns expanded (a pattern that
+    matches nothing stays as it is)."""
+    from ..core.image_io import glob_all
+
+    return glob_all(items) if items else []
+
+
+def _resolve_split_files(args, key: str):
+    """Dataset JSON files of one split: the split's own flag, plus
+    ``--split_file``, either a reference split file (its arrays hold dataset
+    file paths) or a dataset JSON itself (it then counts for each split it
+    fills)."""
+    files = _expand(getattr(args, key, None))
+    if getattr(args, "split_file", None):
+        with open(args.split_file) as f:
+            split = json.load(f)
+        entries = split.get(key) or []
+        if entries and isinstance(entries[0], str):
+            files = files + entries
+        elif entries:
+            files = files + [args.split_file]
+    return files
 
 
 def _not_ported(item: str, what: str):
@@ -153,6 +187,112 @@ def _predict_pipeline(args, color_map, entries) -> int:
     raw_pages = [RawPage(e.image_path, e.binary_path, e.line_height_px) for e in entries]
     count = sum(1 for _ in runner.run(raw_pages, output_dir=args.output))
     print(f"Predicted {count} pages -> {args.output}")
+    return 0
+
+
+# --------------------------------------------------------------------- train
+_TRAIN_NOT_PORTED = (
+    (lambda a: a.distributed, "--distributed (multi-host training)", "12"),
+    (lambda a: a.n_devices and a.n_devices > 1, "--n_devices > 1 (data-parallel training)", "12"),
+    (lambda a: a.checkpoint_backend == "orbax", "--checkpoint_backend orbax", "11"),
+    (lambda a: a.auto_resume, "--auto_resume (Orbax checkpoints)", "11"),
+    (lambda a: a.export_h5, "--export_h5 (Keras .h5 checkpoints)", "10"),
+    (lambda a: a.pretrained_encoder, "--pretrained_encoder (the encoder families)", "10"),
+)
+
+
+def cmd_train(args) -> int:
+    import math
+
+    from ..data.loader import DatasetLoader
+    from ..models.registry import Architecture, Optimizers
+    from ..train.metrics import Loss, Monitor
+    from ..train.trainer import AugmentationSettings, Trainer, TrainSettings
+
+    for unported, what, item in _TRAIN_NOT_PORTED:
+        if unported(args):
+            raise NotImplementedError(f"{what} is not ported yet: ROADMAP queue 1 item {item}")
+    color_map = _load_color_map(args.color_map)
+    loader = DatasetLoader(args.target_line_height, color_map, max_width=args.max_width,
+                           resize_backend=args.resize_backend)
+    lazy = args.streaming
+    train_data = loader.load_data_from_json(_resolve_split_files(args, "train"), "train", lazy=lazy)
+    test_files = _resolve_split_files(args, "test")
+    validation = loader.load_data_from_json(test_files, "test", lazy=lazy) if test_files else None
+    eval_files = _resolve_split_files(args, "eval")
+    evaluation = loader.load_data_from_json(eval_files, "eval", lazy=lazy) if eval_files else None
+
+    n_classes = args.n_classes or color_map.n_classes
+    if args.n_iter:
+        n_epoch = max(1, math.ceil(args.n_iter / max(len(train_data), 1)))
+    else:
+        n_epoch = args.n_epoch
+
+    settings = TrainSettings(
+        n_epoch=n_epoch,
+        n_classes=n_classes,
+        l_rate=args.l_rate,
+        train_data=train_data,
+        validation_data=validation,
+        evaluation_data=evaluation,
+        display=args.display,
+        output_dir=args.output,
+        threads=args.threads,
+        data_augmentation=args.data_augmentation,
+        data_augmentation_settings=AugmentationSettings(),
+        early_stopping_max_performance_drops=args.early_stopping_max_performance_drops,
+        architecture=Architecture(args.architecture),
+        loss=Loss(args.loss),
+        monitor=Monitor(args.monitor),
+        optimizer=Optimizers(args.optimizer),
+        load=args.load,
+        continue_training=args.continue_training,
+        compute_baseline=args.compute_baseline,
+        foreground_masks=args.foreground_masks,
+        tensorboard=args.tensorboard,
+        batch_size=args.batch_size,
+        compute_dtype=args.dtype,
+        seed=args.seed,
+        device_augmentation=args.device_augmentation,
+        remat=args.remat,
+        grad_accum=args.grad_accum,
+        skip_nonfinite=args.skip_nonfinite,
+        lr_schedule=args.lr_schedule,
+        lr_warmup_steps=args.lr_warmup_steps,
+        lr_decay_steps=args.lr_decay_steps,
+        lr_min_fraction=args.lr_min_fraction,
+        balanced_sampling=args.balanced_sampling,
+        balanced_sampling_strength=args.balanced_sampling_strength,
+        class_weighting=args.class_weighting,
+        device=args.device,
+    )
+    trainer = Trainer(settings)
+    trainer.train()
+    trainer.eval()
+    print(f"Model written to {os.path.join(args.output, settings.model_name)}")
+    return 0
+
+
+# ------------------------------------------------------- create-dataset-file
+def cmd_create_dataset_file(args) -> int:
+    from ..data.dataset import list_dataset, single_split
+
+    entries = []
+    for root in args.dataset_path:
+        entries += list_dataset(
+            root,
+            line_height_px=args.character_height,
+            binary_dir_=args.binary_dir,
+            images_dir_=args.images_dir,
+            masks_dir_=args.masks_dir,
+            masks_postfix=args.masks_postfix,
+            normalizations_dir=args.normalizations_dir,
+            verify_filenames=args.verify_filenames,
+        )
+    train, test, eval_ = single_split(args.n_train, args.n_test, args.n_eval, entries)
+    with open(args.output_file, "w") as f:
+        json.dump({"train": train, "test": test, "eval": eval_}, f, indent=2)
+    print(f"Wrote {args.output_file}: {len(train)} train, {len(test)} test, {len(eval_)} eval")
     return 0
 
 
@@ -341,7 +481,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(func=cmd_predict)
 
     # train
-    t = sub.add_parser("train", help="train a model (not ported yet)")
+    t = sub.add_parser("train", help="train a model from dataset JSON files")
     for flag in ("--train", "--test", "--eval"):
         t.add_argument(flag, nargs="*", default=None)
     t.add_argument("--split_file", default=None)
@@ -381,10 +521,11 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--display", type=int, default=100)
     t.add_argument("--threads", type=int, default=8)
     t.add_argument("--seed", type=int, default=0)
-    t.set_defaults(func=_not_ported("11", "training"))
+    t.add_argument("--device", default="cuda", choices=["cuda", "cpu"], help=device_help)
+    t.set_defaults(func=cmd_train)
 
     # create-dataset-file
-    c = sub.add_parser("create-dataset-file", help="build dataset JSON (not ported yet)")
+    c = sub.add_parser("create-dataset-file", help="build dataset JSON from a dataset dir")
     c.add_argument("--dataset_path", nargs="+", required=True)
     c.add_argument("--output_file", default="dataset.json")
     c.add_argument("--character_height", type=int, default=None)
@@ -397,7 +538,7 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--masks_postfix", default="")
     c.add_argument("--normalizations_dir", default="normalizations")
     c.add_argument("--verify_filenames", action="store_true")
-    c.set_defaults(func=_not_ported("11", "dataset JSON"))
+    c.set_defaults(func=cmd_create_dataset_file)
 
     # compute-image-normalizations
     n = sub.add_parser("compute-image-normalizations", help="estimate char heights")

@@ -2,8 +2,9 @@
 
 Counterpart of the part of ``page_segmentation_tpu/core/image_io.py`` that
 the paths use: ``imread``, ``imread_rgb``, ``imread_bin``, ``encode_png``,
-``imsave``, ``imsave_indexed``, and the 1-bit pair ``imsave_bilevel`` /
-``imread_bilevel_packed`` of the raw corpus's packed-binary mode.  The
+``imsave``, ``imsave_indexed``, the 1-bit pair ``imsave_bilevel`` /
+``imread_bilevel_packed`` of the raw corpus's packed-binary mode, and
+``random_indices`` and ``glob_all`` of the dataset tools.  The
 writers need neither PIL nor cv2: PNGs are written here with filter-0 rows
 through ``zlib`` (1-bit gray, 8-bit gray, 8-bit RGB, and indexed at the
 smallest legal bit depth), and decode to the same pixels as the JAX
@@ -16,7 +17,8 @@ from __future__ import annotations
 
 import struct
 import zlib
-from typing import Optional, Tuple
+from random import shuffle
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -264,3 +266,23 @@ def imread_bilevel_packed(path) -> Optional[Tuple[np.ndarray, int]]:
         return None
     (w, _h, _depth, _color_type), _palette, rows = got
     return np.ascontiguousarray(rows), w
+
+
+def random_indices(collection: Sequence) -> List[int]:
+    """The indices of ``collection`` in an order drawn by the ``random``
+    module, so that ``random.seed`` fixes it."""
+    indices = list(range(len(collection)))
+    shuffle(indices)
+    return indices
+
+
+def glob_all(patterns: Iterable[str]) -> List[str]:
+    """Shell glob patterns expanded, each sorted; a pattern that matches
+    nothing stays as it is."""
+    import glob
+
+    out: List[str] = []
+    for pattern in patterns:
+        matched = sorted(glob.glob(pattern))
+        out.extend(matched if matched else [pattern])
+    return out

@@ -1,8 +1,9 @@
-"""Dataset loading for prediction, with a thread pool over pages.
+"""Dataset loading, with a thread pool over pages.
 
-Counterpart of ``page_segmentation_tpu/data/loader.py`` ``DatasetLoader`` in
-prediction mode.  Training mode (label masks) and dataset JSON come with
-training (ROADMAP queue 1 item 11) and raise here.
+Counterpart of ``page_segmentation_tpu/data/loader.py`` ``DatasetLoader``:
+prediction mode (image and binary), training mode (also the label mask,
+read through the color map and nearest-resized to the prepared image), and
+dataset JSON files (``load_data_from_json``).
 """
 from __future__ import annotations
 
@@ -14,10 +15,8 @@ import numpy as np
 
 from ..core.colors import ColorMap
 from ..core.image_io import image_shape, imread, imread_bin
-from .dataset import Dataset, SingleData
-from .prepare import prepare_images, prepared_shape
-
-_TRAINING = "training mode ({}) is not ported yet: ROADMAP queue 1 item 11"
+from .dataset import Dataset, SingleData, read_dataset_json
+from .prepare import prepare_images, prepare_mask, prepared_shape
 
 
 class DatasetLoader:
@@ -31,8 +30,6 @@ class DatasetLoader:
         num_workers: int = 12,
         binarize: str = "threshold",
     ):
-        if not prediction:
-            raise NotImplementedError(_TRAINING.format("prediction=False, label masks"))
         if binarize not in ("threshold", "otsu"):
             raise ValueError(f"binarize must be 'threshold' or 'otsu', got {binarize!r}")
         self.target_line_height = target_line_height
@@ -65,6 +62,14 @@ class DatasetLoader:
             img, binary, self.target_line_height, entry.line_height_px, self.max_width,
             keep_orig_bin=True, resize_backend=self.resize_backend,
         )
+        if not self.prediction:
+            if entry.mask is None and entry.mask_path is None:
+                raise ValueError("training mode needs a mask or a mask_path on every entry")
+            mask = entry.mask if entry.mask is not None else self.color_map.imread_labels(entry.mask_path)
+            mask = prepare_mask(mask, img.shape)
+            if mask.shape != img.shape:
+                raise ValueError(f"mask shape {mask.shape} != prepared image shape {img.shape}")
+            entry.mask = mask
         entry.binary = binary
         entry.orig_binary = orig_bin
         entry.image = img
@@ -109,4 +114,6 @@ class DatasetLoader:
         return Dataset(out, self.color_map)
 
     def load_data_from_json(self, files: List[str], split_type: str, lazy: bool = False) -> Dataset:
-        raise NotImplementedError(_TRAINING.format("dataset JSON"))
+        """The entries of ``split_type`` in dataset JSON ``files``, loaded as
+        :meth:`load_data` loads them."""
+        return self.load_data(read_dataset_json(files, split_type), lazy=lazy)

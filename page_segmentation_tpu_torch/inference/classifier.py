@@ -82,6 +82,11 @@ class PixelClassifier:
     def params(self, value):
         self.variables = {**(self._variables or {}), "params": value}
 
+    @property
+    def model_state(self):
+        """The collections besides ``params`` ({} for the FCN families)."""
+        return {k: v for k, v in (self._variables or {}).items() if k != "params"}
+
     # ----------------------------------------------------------- params I/O
     def init_params(self, seed: int = 0) -> None:
         skips = self.architecture is Architecture.FCN_SKIP

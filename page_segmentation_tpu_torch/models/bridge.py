@@ -4,7 +4,9 @@ The JAX FCN param tree is a nested dict ``{layer: {"kernel", "bias"}}`` of
 arrays: conv kernels HWIO ``(kh, kw, in, out)`` and Keras conv-transpose
 kernels ``(kh, kw, out, in)``.  Both map to torch's layout (conv
 ``(out, in, kh, kw)``, conv-transpose ``(in, out, kh, kw)``) by
-``transpose(3, 2, 0, 1)``.
+``transpose(3, 2, 0, 1)``, and back by ``transpose(2, 3, 1, 0)``
+(:func:`params_to_jax`).  Any tree of the params' shapes (the optimizer's
+moments) maps the same way.
 
 Checkpoints (``params.msgpack``) are read by ``train/checkpoint.py``.
 """
@@ -35,6 +37,25 @@ def params_from_jax(tree: Mapping[str, Mapping[str, np.ndarray]]) -> Dict[str, t
             np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
         state[f"{layer}.bias"] = torch.from_numpy(np.asarray(leaves["bias"], np.float32).copy())
     return state
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarray]]:
+    """The port's state_dict (``{"conv1.weight", "conv1.bias", ...}``, any
+    device) -> the JAX param tree of float32 numpy arrays; the exact inverse
+    of :func:`params_from_jax`."""
+    tree: Dict[str, Dict[str, np.ndarray]] = {}
+    for name, value in state.items():
+        layer, leaf = name.rsplit(".", 1)
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            if arr.ndim != 4:
+                raise ValueError(f"{name} must be 4-D, got {arr.shape}")
+            tree.setdefault(layer, {})["kernel"] = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+        elif leaf == "bias":
+            tree.setdefault(layer, {})["bias"] = arr.copy()
+        else:
+            raise ValueError(f"unexpected state_dict entry {name!r}")
+    return tree
 
 
 # decoder input widths of FCN, which joins no skip maps

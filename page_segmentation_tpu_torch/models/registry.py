@@ -5,8 +5,10 @@ the 14 names, their preprocess modes (Keras ``preprocess_input``
 conventions: 'gray' /255, 'caffe' BGR minus the ImageNet means, 'tf' to
 [-1, 1], 'torch' [0, 1] then ImageNet mean/std), the host and device (torch)
 normalization functions and the stride factors.  ``model()`` builds the FCN
-families; the encoder families come with ROADMAP queue 1 item 10.  The
-optimizer registry comes with training.
+families; the encoder families come with ROADMAP queue 1 item 10.
+``Optimizers`` names the seven optimizers; ``make`` builds one as
+``train/optim.py`` writes it, with Keras' per-tensor ``clipnorm`` on by
+default.
 """
 from __future__ import annotations
 
@@ -118,3 +120,31 @@ class Architecture(enum.Enum):
             Architecture.RES_NET: 32,
             Architecture.MOBILE_NET: 32,
         }.get(self, 32)
+
+
+class Optimizers(enum.Enum):
+    ADAM = "adam"
+    ADAMAX = "adamax"
+    ADADELTA = "adadelta"
+    ADAGRAD = "adagrad"
+    RMSPROP = "rmsprop"
+    SGD = "sgd"
+    NADAM = "nadam"
+
+    def make(
+        self,
+        l_rate,
+        norm_clipping: bool = True,
+        norm_clip_value: float = 1.0,
+        value_clipping: bool = False,
+        clip_value: float = 1.0,
+        grad_accum: int = 1,
+    ):
+        """The optimizer (``train/optim.py`` ``Optimizer``): ``l_rate`` is a
+        float or a schedule (update count -> float32 tensor); ``grad_accum``
+        > 1 applies the mean of that many micro-gradients at once."""
+        from ..train.optim import Optimizer
+
+        return Optimizer(self.value, l_rate, norm_clipping=norm_clipping,
+                         norm_clip_value=norm_clip_value, value_clipping=value_clipping,
+                         clip_value=clip_value, grad_accum=grad_accum)

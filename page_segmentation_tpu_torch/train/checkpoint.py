@@ -1,11 +1,13 @@
 """The JAX package's checkpoint directories, read and written without flax or
 msgpack.
 
-Counterpart of ``save_checkpoint`` and ``load_checkpoint`` in
+Counterpart of ``save_checkpoint``, ``load_checkpoint``,
+``load_opt_state`` and ``load_meta`` in
 ``page_segmentation_tpu/train/checkpoint.py``:
 
-    <dir>/params.msgpack   the variables, as flax's msgpack_serialize writes them
-    <dir>/meta.json        architecture, n_classes, ...
+    <dir>/params.msgpack     the variables, as flax's msgpack_serialize writes them
+    <dir>/opt_state.msgpack  optionally, the optimizer state (optax's state dict)
+    <dir>/meta.json          architecture, n_classes, the training loop's counters
 
 :func:`load_checkpoint` returns ``(variables, meta)`` with ``variables``
 always holding a ``"params"`` tree of numpy arrays, the layout that
@@ -18,7 +20,9 @@ and flax's ext types (1: an ndarray as the msgpack triple (shape, dtype
 name, row-major bytes); 2: a complex as (real, imag); 3: a numpy scalar,
 packed as an ndarray), plus flax's chunked form of arrays over 1 GiB.  numpy
 has no bfloat16, so a bfloat16 array comes back widened exactly to float32.
-The optimizer state comes with training (ROADMAP queue 1 item 11).
+``train/optim.py`` maps the optimizer state to and from optax's state dict.
+The JAX package's Orbax checkpointer is not ported (ROADMAP queue 1 item 11):
+:class:`OrbaxCheckpointer` raises.
 """
 from __future__ import annotations
 
@@ -286,16 +290,18 @@ def _to_numpy(tree):
 def save_checkpoint(path: str, variables, meta: Optional[Dict[str, Any]] = None,
                     opt_state=None) -> None:
     """Write ``variables`` (a collection dict with ``"params"``, or a bare
-    params tree; numpy arrays or CPU tensors as leaves) and ``meta`` as the
-    JAX package's ``save_checkpoint`` does: every leaf as an ndarray."""
-    if opt_state is not None:
-        raise NotImplementedError(
-            "saving the optimizer state comes with training: ROADMAP queue 1 item 11")
+    params tree; numpy arrays or CPU tensors as leaves), ``opt_state`` (a
+    state dict of such leaves, as ``Optimizer.state_dict`` gives it) and
+    ``meta`` as the JAX package's ``save_checkpoint`` does: every leaf as an
+    ndarray, so the same values give the same bytes."""
     if not isinstance(variables, dict) or "params" not in variables:
         variables = {"params": variables}
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "params.msgpack"), "wb") as f:
         f.write(msgpack_serialize(_to_numpy(dict(variables))))
+    if opt_state is not None:
+        with open(os.path.join(path, "opt_state.msgpack"), "wb") as f:
+            f.write(msgpack_serialize(_to_numpy(opt_state)))
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump(meta or {}, f, indent=2, default=str)
 
@@ -310,9 +316,50 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         variables = msgpack_restore(f.read())
     if "params" not in variables:  # a bare params tree
         variables = {"params": variables}
-    meta = {}
+    return variables, load_meta(path)
+
+
+def _check_like(template, tree, where: str = "opt_state") -> None:
+    """Raise unless ``tree`` has ``template``'s keys and array shapes."""
+    if isinstance(template, dict):
+        if not isinstance(tree, dict) or set(tree) != set(template):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+            raise ValueError(f"{where}: keys {got} do not match the template's {sorted(template)}")
+        for key in template:
+            _check_like(template[key], tree[key], f"{where}/{key}")
+    elif np.shape(template) != np.shape(tree):
+        raise ValueError(f"{where}: shape {np.shape(tree)} does not match the template's "
+                         f"{np.shape(template)}")
+
+
+def load_opt_state(path: str, template=None):
+    """The optimizer state dict of a checkpoint directory, or None without
+    one; with ``template`` (a state dict of the same optimizer) it must
+    match the template's keys and shapes."""
+    opt_file = os.path.join(path, "opt_state.msgpack")
+    if not os.path.exists(opt_file):
+        return None
+    with open(opt_file, "rb") as f:
+        state = msgpack_restore(f.read())
+    if template is not None:
+        _check_like(template, state)
+    return state
+
+
+def load_meta(path: str) -> Dict[str, Any]:
+    """Only ``meta.json`` of a checkpoint directory ({} without one)."""
     meta_file = os.path.join(path, "meta.json")
-    if os.path.exists(meta_file):
-        with open(meta_file, "r") as f:
-            meta = json.load(f)
-    return variables, meta
+    if not os.path.exists(meta_file):
+        return {}
+    with open(meta_file, "r") as f:
+        return json.load(f)
+
+
+class OrbaxCheckpointer:
+    """The JAX package's async, versioned Orbax checkpoints: not ported (the
+    card's machine has no orbax)."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        raise NotImplementedError(
+            "Orbax checkpoints (checkpoint_backend='orbax', auto_resume) are not ported yet: "
+            "ROADMAP queue 1 item 11")

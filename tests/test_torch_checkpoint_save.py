@@ -98,6 +98,8 @@ def test_large_arrays_are_chunked_as_flax_chunks_them(monkeypatch):
 
 
 def test_optimizer_state_is_not_ported(tmp_path):
+    # the msgpack optimizer state is written now (tests/test_torch_train_optim.py);
+    # the Orbax checkpointer is what stays unported
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        checkpoint.save_checkpoint(str(tmp_path), {"params": {}}, opt_state={"mu": np.zeros(2)})
-    assert not os.path.exists(tmp_path / "params.msgpack")
+        checkpoint.OrbaxCheckpointer(str(tmp_path / "orbax"))
+    assert not os.path.exists(tmp_path / "orbax")

@@ -1,6 +1,6 @@
 """The port stands alone: no module of page_segmentation_tpu_torch, and not
-chip_smoke.py, imports jax, flax or the JAX package; and its entry points
-run on the card by default, raising where there is none."""
+chip_smoke.py, imports jax, flax, optax or the JAX package; and its entry
+points run on the card by default, raising where there is none."""
 import ast
 import os
 import subprocess
@@ -13,7 +13,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "page_segmentation_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "page_segmentation_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "page_segmentation_tpu")
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -67,8 +67,14 @@ def _entry_points():
     from page_segmentation_tpu_torch.models.fcn import FCNSkip
     from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
     from page_segmentation_tpu_torch.tools import repro_download
+    from page_segmentation_tpu_torch.core.colors import ColorMap
+    from page_segmentation_tpu_torch.data.dataset import Dataset
+    from page_segmentation_tpu_torch.cli.main import main as cli_main
+    from page_segmentation_tpu_torch.network import Network
+    from page_segmentation_tpu_torch.train.trainer import Trainer, TrainSettings
 
     ink = np.ones((8, 8), np.uint8)
+    empty = Dataset([], ColorMap({(255, 255, 255): (0, "background")}))
     return {
         "ThroughputPredictor": lambda: ThroughputPredictor(
             FCNSkip(3), None, DEFAULT_IMAGE_MAP.palette, (400, 296), 6 / 50),
@@ -82,13 +88,18 @@ def _entry_points():
         "cc_vote_on_device": lambda: cc_vote_on_device(ink, ink, 3),
         "add_one": lambda: cuda_add_one.add_one(ink),
         "repro_download.main": lambda: repro_download.main(trials=1),
+        "Trainer": lambda: Trainer(TrainSettings(
+            n_epoch=0, n_classes=2, l_rate=1e-3, train_data=empty, validation_data=None,
+            display=0, output_dir="unused", threads=1)),
+        "Network": lambda: Network("train", n_classes=3),
+        "train CLI": lambda: cli_main(["train", "--output", "unused"]),
     }
 
 
 @pytest.mark.parametrize("name", ["ThroughputPredictor", "make_fused_predict", "cc_min_label",
                                   "cc_min_label_batch", "cc_min_label_tiled", "cc_vote_batch",
                                   "PixelClassifier", "Predictor", "cc_vote_on_device", "add_one",
-                                  "repro_download.main"])
+                                  "repro_download.main", "Trainer", "Network", "train CLI"])
 def test_default_device_is_cuda_and_raises_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")

@@ -192,11 +192,16 @@ def test_loader_matches_jax(page_files, binarize):
     np.testing.assert_array_equal(got.binary, w.binary)
 
 
-def test_loader_training_mode_raises():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        DatasetLoader(6, DEFAULT_IMAGE_MAP, prediction=False)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        DatasetLoader(6, DEFAULT_IMAGE_MAP, prediction=True).load_data_from_json([], "all")
+def test_loader_training_mode_raises(tmp_path):
+    # training mode is ported (tests/test_torch_train_data.py); it raises
+    # on an entry without a label mask and on a missing dataset JSON
+    page, binary = _page(96, 80, 3)
+    with pytest.raises(ValueError, match="mask"):
+        DatasetLoader(6, DEFAULT_IMAGE_MAP, prediction=False).load_images(
+            SingleData(image=page, binary=binary, line_height_px=16))
+    with pytest.raises(FileNotFoundError):
+        DatasetLoader(6, DEFAULT_IMAGE_MAP, prediction=True).load_data_from_json(
+            [str(tmp_path / "missing.json")], "all")
 
 
 def _images_to_write():
