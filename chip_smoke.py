@@ -28,9 +28,18 @@ the kernels' launch counts set to 0 just before it and read just after:
 * the training path: A4 pages with color masks written as PNGs, the CLI's
   ``create-dataset-file`` and ``train`` (3 epochs at batch 8), steady train
   steps timed on the card, one float32 step held against the CPU, and an
-  epoch with device augmentation.
+  epoch with device augmentation;
+* the other model families (UNet, ResUNet, ResNet50, MobileNetV2,
+  EfficientNet-B0 and -B7 U-Nets) at their published widths on the
+  throughput path with the device vote, each held against the CPU and
+  bf16 against float32, and mobile_net from a checkpoint on the library
+  batch path;
+* the Trainer on mobile_net (BatchNorm) and unet (dropout), with one
+  float32 BatchNorm step held against the CPU.
 
-Then it checks what comes out.  Prints one line per phase, then a JSON line
+Each phase runs under PyTorch's default cuDNN and TF32 flags (those the
+port's CLI keeps) unless it states its own, prints them, and restores the
+flags it found on exit.  Then it checks what comes out.  Prints one line per phase, then a JSON line
 of per-kernel measurements, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
 when there is no card, when the package is missing, or when any phase
@@ -38,6 +47,7 @@ fails.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -70,11 +80,56 @@ TRAIN_PAGES = 40           # the training phase: 32 train + 8 test pages
 TRAIN_BATCH = 8
 TRAIN_EPOCHS = 3
 STEADY_STEPS = 50
+
+
+# the families' phases: published widths, A4 pages as the main path
+FAMILIES = ("unet", "res_unet", "image_res_net", "mobile_net", "effb0", "effb7")
+CALIBRATION_PAGES = 8      # BatchNorm statistics calibrated on one batch
+CHECK_PAGES = 2            # card vs CPU forward
+DECISIVE = 0.05            # bf16 gate: top-2 margin >= 5 % of the largest |logit|
+TRAIN_FAMILIES = ("mobile_net", "unet")
+FAMILY_EPOCHS = 2
+FAMILY_LR = 1e-4           # Adam; UNet without BatchNorm diverges at 1e-3 from a random start
+FAMILY_STEADY_STEPS = 20
 DEVICE = "cuda"
+
+# the cuDNN and TF32 flags, at PyTorch's defaults: the port's CLI sets none
+DEFAULT_FLAGS = {"cudnn.deterministic": False, "cudnn.benchmark": False,
+                 "cudnn.allow_tf32": True, "cuda.matmul.allow_tf32": False}
+NO_TF32 = {"cudnn.allow_tf32": False, "cuda.matmul.allow_tf32": False}
 
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def _flag_owner(name: str):
+    owner = torch.backends
+    *path, attr = name.split(".")
+    for part in path:
+        owner = getattr(owner, part)
+    return owner, attr
+
+
+def current_flags() -> dict:
+    return {name: getattr(*_flag_owner(name)) for name in DEFAULT_FLAGS}
+
+
+@contextlib.contextmanager
+def backend_flags(phase: str, overrides=None):
+    """Run a phase (as a ``with`` block or a decorator) under PyTorch's
+    default cuDNN and TF32 flags with ``overrides`` on top, printed on a line
+    of their own; the flags found on entry come back on exit, also when the
+    phase fails, so no phase runs under another's settings."""
+    saved = current_flags()
+    try:
+        for name, value in {**DEFAULT_FLAGS, **(overrides or {})}.items():
+            setattr(*_flag_owner(name), value)
+        log(f"flags {phase}: {json.dumps(current_flags())}")
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(*_flag_owner(name), value)
 
 
 # ------------------------------------------------------------------- inputs
@@ -287,6 +342,7 @@ def label_bound_ms(n_pixels: int) -> float:
 
 
 # ------------------------------------------------------------------ phases
+@backend_flags("card")
 def phase_card():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -311,6 +367,7 @@ def phase_card():
 CC_PASSES = ("tile_kernel", "border_kernel", "flatten_kernel")  # csrc/cc_label.cu
 
 
+@backend_flags("kernels")
 def phase_kernels(text_ink: np.ndarray, large_ink: np.ndarray):
     """Every kernel entry point against the plain PyTorch labeler on the
     card, exact equality, on random, text-like, tile-edge, checkerboard,
@@ -403,6 +460,7 @@ def phase_kernels(text_ink: np.ndarray, large_ink: np.ndarray):
     return dict(main, max_abs_err=max_err, tiled=tiled, host_us=host)
 
 
+@backend_flags("forward", NO_TF32)
 def phase_forward(state, dec: np.ndarray):
     """FCNSkip on the card against the same module on the CPU (whose bf16
     and float32 forwards the CPU tests hold to the JAX module's), with TF32
@@ -413,8 +471,6 @@ def phase_forward(state, dec: np.ndarray):
     from page_segmentation_tpu_torch.inference.pipeline import _device_normalize
     from page_segmentation_tpu_torch.models.fcn import FCNSkip
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     (out_h, out_w), (pad_h, pad_w) = normalized_shapes()
     img = _device_normalize(out_h, out_w, pad_h, pad_w)(torch.from_numpy(dec))
     logits = {}
@@ -439,6 +495,7 @@ def phase_forward(state, dec: np.ndarray):
         raise AssertionError("the forward on the card disagrees with the CPU forward")
 
 
+@backend_flags("main path")
 def phase_main_path(state, pages, binaries):
     """ThroughputPredictor(cc_vote="pallas") over N_PAGES A4 pages at batch
     BATCH; checks the labeler ran and that the outputs are right."""
@@ -595,6 +652,7 @@ def launch_pieces_us(x: torch.Tensor):
     return {name: host_us(piece) for name, piece in pieces.items()}
 
 
+@backend_flags("repro_download")
 def phase_repro_download():
     """K3's kernel against its plain version at the tool's shape, timed
     beside torch.add; then the download-race tool in both modes, on the
@@ -670,6 +728,8 @@ def _pngs_decode_to(out_dir: str, name: str, arrays):
             raise AssertionError(f"{category}/{name} does not decode to the yielded array")
 
 
+# two dispatches of the same batch must give the same labels
+@backend_flags("library", {"cudnn.deterministic": True, **NO_TF32})
 def phase_library(pages, binaries):
     """The per-page library path at the full width of FCNSkip (3 classes,
     weights init_params_numpy(3, SEED)) on LIBRARY_PAGES A4 pages: load,
@@ -687,10 +747,6 @@ def phase_library(pages, binaries):
     from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
     from page_segmentation_tpu_torch.ops.pad import pad_to
 
-    # the second dispatch of a batch must give the first one's labels
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.allow_tf32 = False
     palette = DEFAULT_IMAGE_MAP.palette
 
     t0 = time.perf_counter()
@@ -817,6 +873,8 @@ def _write_corpus(root: str, pages, binaries):
     return names
 
 
+# two runs over the same files must give the same labels
+@backend_flags("corpus", {"cudnn.deterministic": True})
 def phase_corpus(pages, binaries, work: str):
     """The CLI and the raw-corpus streamer over N_PAGES A4 PNGs with a
     checkpoint the port writes (FCNSkip, 3 classes, init_params_numpy(3,
@@ -840,9 +898,6 @@ def phase_corpus(pages, binaries, work: str):
     from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
     from page_segmentation_tpu_torch.train.checkpoint import save_checkpoint
 
-    # two dispatches of the same batch must give the same labels
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
     model = os.path.join(work, "model")
     t0 = time.perf_counter()
     save_checkpoint(model, {"params": init_params_numpy(3, SEED)}, {"architecture": "fcn_skip", "n_classes": 3})
@@ -945,6 +1000,8 @@ def phase_corpus(pages, binaries, work: str):
             "stages_ms": {k: v * 1e3 for k, v in stages.items()}}
 
 
+# the served labels must equal a direct run of the same batch
+@backend_flags("serve", {"cudnn.deterministic": True})
 def phase_serve(pages, model: str):
     """PredictionServer over BatchingService on localhost, fused route with
     cc_majority (host vote) and max_batch SERVE_BATCH: SERVE_PAGES A4 PNGs
@@ -971,8 +1028,6 @@ def phase_serve(pages, model: str):
     from page_segmentation_tpu_torch.inference.server import BatchingService, PredictionServer, ServeStats
     from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
 
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
     cls = PixelClassifier(3, compute_dtype=torch.bfloat16, model_path=model, device=DEVICE)
     settings = PredictSettings(n_classes=3, color_map=DEFAULT_IMAGE_MAP,
                                post_process=[vote_connected_component_class])
@@ -1145,6 +1200,7 @@ def _write_training_set(root: str, pages, binaries):
     list(io_pool().map(write, range(len(pages))))
 
 
+@backend_flags("train")
 def phase_train(pages, binaries, work: str):
     """The training path on TRAIN_PAGES A4 pages at the full width of
     FCNSkip (3 classes, weights init_params_numpy(3, SEED)): the CLI's
@@ -1161,7 +1217,7 @@ def phase_train(pages, binaries, work: str):
         augment_batch_on_device,
     )
     from page_segmentation_tpu_torch.inference.classifier import PixelClassifier
-    from page_segmentation_tpu_torch.models.bridge import _layer_shapes, params_from_jax
+    from page_segmentation_tpu_torch.models.bridge import init_params_numpy, params_from_jax
     from page_segmentation_tpu_torch.models.fcn import FCNSkip
     from page_segmentation_tpu_torch.models.registry import Architecture, Optimizers
     from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
@@ -1170,15 +1226,9 @@ def phase_train(pages, binaries, work: str):
     from page_segmentation_tpu_torch.train.metrics import loss as ce_loss
     from page_segmentation_tpu_torch.train.steps import make_step_fns
 
-    # PyTorch's defaults, as a fresh `train` CLI process has them (earlier
-    # phases turned TF32 off and cuDNN deterministic)
+    # PyTorch's defaults, as a fresh `train` CLI process has them
     t_phase = time.perf_counter()
-    torch.backends.cudnn.deterministic = False
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = False
-    tf32 = {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
-            "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    tf32 = {k: v for k, v in current_flags().items() if "tf32" in k}
     data_dir, out = os.path.join(work, "train_set"), os.path.join(work, "train_out")
     t0 = time.perf_counter()
     _write_training_set(data_dir, pages[:TRAIN_PAGES], binaries[:TRAIN_PAGES])
@@ -1239,7 +1289,8 @@ def phase_train(pages, binaries, work: str):
     model = os.path.join(out, "model")
     variables, meta = load_checkpoint(model)
     shapes = {k: v["kernel"].shape for k, v in variables["params"].items()}
-    if shapes != _layer_shapes(3) or meta.get("epoch") is None:
+    if shapes != {k: v["kernel"].shape for k, v in init_params_numpy(3, SEED).items()} \
+            or meta.get("epoch") is None:
         raise AssertionError(f"checkpoint kernels {shapes}, meta {meta}")
     template = trainer.optimizer.state_dict(trainer.optimizer.init(params_from_jax(variables["params"])))
     opt_state = load_opt_state(model, template=template)
@@ -1308,8 +1359,7 @@ def phase_train(pages, binaries, work: str):
     # one float32 step from the checkpoint's weights, TF32 off, on the card
     # and on the CPU
     t0 = time.perf_counter()
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with backend_flags("train: card vs CPU step", NO_TF32):
         jax_tree = variables["params"]
         grads = {}
         for device in (DEVICE, "cpu"):
@@ -1320,9 +1370,6 @@ def phase_train(pages, binaries, work: str):
             loss_value, g = step.value_and_grad(p, {}, b)
             grads[device] = (float(loss_value), {k: v.double().cpu() for k, v in g.items()})
         torch.cuda.synchronize()
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32["cudnn.allow_tf32"]
-        torch.backends.cuda.matmul.allow_tf32 = tf32["cuda.matmul.allow_tf32"]
     (card_loss, card_g), (cpu_loss, cpu_g) = grads[DEVICE], grads["cpu"]
     loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
     rel = {k: float((card_g[k] - cpu_g[k]).norm() / cpu_g[k].norm().clamp_min(1e-30)) for k in cpu_g}
@@ -1366,7 +1413,335 @@ def phase_train(pages, binaries, work: str):
             "steady_pages_per_s": TRAIN_BATCH / step_ms * 1e3, "batch_build_ms": min(build_ms),
             "upload_ms": min(upload_ms), "batch_shape": list(shape), "losses": losses,
             "card_vs_cpu": {"loss_rel": loss_rel, "grad_rel_max": grad_rel, "grad_rel_max_leaf": worst}, "tf32": tf32,
-            "device_augmentation_epoch_s": aug_s}
+            "device_augmentation_epoch_s": aug_s, "trainer": trainer}
+
+
+def family_gflop_per_page(arch, channels: int, shape) -> float:
+    """GFLOP of one page's forward (2 per multiply-add), counted by
+    torch.utils.flop_counter on the meta device: shapes only, no compute."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.device("meta"):
+        module = arch.model(3)
+        x = torch.empty((1, channels) + tuple(shape))
+    with FlopCounterMode(display=False) as counter:
+        module.forward_nchw(x)
+    return counter.get_total_flops() / 1e9
+
+
+def calibrated_state(arch, x: torch.Tensor) -> dict:
+    """The family's weights from the bridge's seeded init with every
+    BatchNorm's statistics set to those of ``x`` (float32, TF32 off), as a
+    CPU state_dict: random weights at mean 0 / var 1 blow activations up
+    through the deep chains, and near-tied logits would then make every
+    argmax comparison meaningless."""
+    from page_segmentation_tpu_torch.models.bridge import init_variables_numpy, params_from_jax
+    from page_segmentation_tpu_torch.models.layers import calibrate_batch_stats
+
+    module = arch.model(3).to(DEVICE)
+    module.load_state_dict(params_from_jax(init_variables_numpy(module, SEED)))
+    with backend_flags(f"{arch.value}: calibration", NO_TF32):
+        calibrate_batch_stats(module, x)
+    return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+
+
+@backend_flags("families")
+def phase_families(pages, binaries, work: str):
+    """Each of FAMILIES at its published widths, weights from the bridge's
+    seeded init with BatchNorm calibrated on one batch: its forward on the
+    card against the CPU (float32, TF32 off) and bf16 against float32 on the
+    card; ThroughputPredictor in bf16, download="packed", cc_vote="pallas"
+    over N_PAGES A4 pages at batch BATCH (pages/s, device ms per batch, peak
+    memory, idle share, cc_label launches); the device vote against the
+    plain labeler's vote on the same predictions.  Then mobile_net from a
+    msgpack checkpoint through PixelClassifier.predict_batch_masks with the
+    device vote, against the CPU port."""
+    import os
+
+    from page_segmentation_tpu_torch import native
+    from page_segmentation_tpu_torch.core.colors import DEFAULT_IMAGE_MAP
+    from page_segmentation_tpu_torch.inference.classifier import PixelClassifier
+    from page_segmentation_tpu_torch.inference.output import finish_mask_trio, unpack_bits_device
+    from page_segmentation_tpu_torch.inference.pipeline import (
+        ThroughputPredictor,
+        _device_normalize,
+        make_fused_predict,
+    )
+    from page_segmentation_tpu_torch.models.bridge import params_to_jax
+    from page_segmentation_tpu_torch.models.registry import Architecture
+    from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
+    from page_segmentation_tpu_torch.train.checkpoint import save_checkpoint
+
+    palette = DEFAULT_IMAGE_MAP.palette
+    (out_h, out_w), _ = normalized_shapes()
+    dec = torch.from_numpy(native.decimate_u8(pages[:CALIBRATION_PAGES], HOST_DECIMATE)).to(DEVICE)
+    n_batches = -(-N_PAGES // BATCH)
+    results, states = {}, {}
+    for name in FAMILIES:
+        t_family = time.perf_counter()
+        arch = Architecture(name)
+        stride = arch.stride_factor
+        padded = (-(-out_h // stride) * stride, -(-out_w // stride) * stride)
+        normalize = _device_normalize(out_h, out_w, *padded, arch.preprocess_mode)
+        states[name] = state = calibrated_state(arch, normalize(dec))
+        channels = 3 if arch.preprocess()[1] else 1
+        gflop = family_gflop_per_page(arch, channels, padded)
+
+        # the forward: card float32 vs CPU, card bf16 vs card float32
+        x = normalize(dec[:CHECK_PAGES])
+        module = {}
+        for key, device, dtype in (("card32", DEVICE, torch.float32), ("cpu32", "cpu", torch.float32),
+                                   ("card16", DEVICE, torch.bfloat16)):
+            module[key] = arch.model(3, dtype=dtype).to(device)
+            module[key].load_state_dict(state)
+        with backend_flags(f"{name}: float32 card vs CPU", NO_TF32), torch.inference_mode():
+            card32 = module["card32"].forward_nchw(x).cpu()
+        with torch.inference_mode():
+            cpu32 = module["cpu32"].forward_nchw(x.cpu())
+            card16 = module["card16"].forward_nchw(x.to(torch.bfloat16)).cpu()
+        rel_err = float((card32 - cpu32).abs().max() / cpu32.abs().max())
+        f32_agree = float((card32.argmax(1) == cpu32.argmax(1)).float().mean())
+        top2 = card32.topk(2, dim=1).values
+        decisive = (top2[:, 0] - top2[:, 1]) >= DECISIVE * card32.abs().max()
+        bf16_same = card16.argmax(1) == card32.argmax(1)
+        bf16_all, bf16_decisive = float(bf16_same.float().mean()), float(bf16_same[decisive].float().mean())
+        decisive_share = float(decisive.float().mean())
+        log(f"phase families {name}: {gflop:.1f} GFLOP a page at {padded}; card vs CPU float32 on "
+            f"{CHECK_PAGES} pages: max |d logit| {rel_err:.3e} of the largest, argmax agreement "
+            f"{f32_agree:.6f}; card bf16 vs float32: {bf16_decisive:.6f} on the {decisive_share:.3f} "
+            f"of pixels with a decisive margin, {bf16_all:.6f} on all (reported)")
+        if f32_agree < 0.999 or decisive_share < 0.3 or bf16_decisive < 0.999:
+            raise AssertionError(f"{name}: the forward on the card disagrees (float32 {f32_agree}, "
+                                 f"bf16 {bf16_decisive} on {decisive_share} of pixels)")
+        bf16 = module["card16"]
+        del module
+
+        # the throughput path, bf16, device vote
+        tp = ThroughputPredictor(
+            bf16, None, palette, A4, SCALE, host_decimate=HOST_DECIMATE,
+            stride_factor=stride, compute_dtype=torch.bfloat16, download="packed", cc_vote="pallas",
+            preprocess_mode=arch.preprocess_mode, device=DEVICE)
+        tp.execute_batch(tp.prep_batch(pages[:BATCH], binaries[:BATCH]))  # warm-up: cuDNN plans
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_cc.launches = cuda_add_one.launches = 0
+        t0 = time.perf_counter()
+        outs = [tuple(a.copy() for a in trio) for trio in tp.run(pages, binaries, batch_size=BATCH)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, peak_mib = cuda_cc.launches, torch.cuda.max_memory_allocated() / 2 ** 20
+        if launches != cuda_cc.LAUNCHES_PER_CALL * n_batches or cuda_add_one.launches:
+            raise AssertionError(f"{name}: cc_label launched {launches} times (expected "
+                                 f"{cuda_cc.LAUNCHES_PER_CALL * n_batches}), add_one {cuda_add_one.launches}")
+        for trio in outs:
+            for arr in trio:
+                if arr.shape != (BATCH, out_h, out_w, 3) or arr.dtype != np.uint8:
+                    raise AssertionError(f"{name}: trio array {arr.shape} {arr.dtype}")
+
+        prepared = tp.prep_batch(pages[:BATCH], binaries[:BATCH])
+        dec_t, ink_t = tp.transfers.take(prepared[0]), tp.transfers.take(prepared[2])
+        device_ms = cuda_ms(lambda: tp.fused(dec_t, tp.palette_dev, ink_t), reps=5, warmup=1)
+        wall_us, busy_us, by_name, _ = profiled(lambda: [None for _ in tp.run(pages, binaries, batch_size=BATCH)])
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+
+        # the vote: kernel == plain labeler on one dispatch's predictions
+        unvoted = make_fused_predict(bf16, (out_h, out_w), stride_factor=stride,
+                                     compute_dtype=torch.bfloat16, download="pred",
+                                     preprocess_mode=arch.preprocess_mode, device=DEVICE)(dec_t, tp.palette_dev)
+        ink = unpack_bits_device(ink_t)
+        voted = cuda_cc.cc_vote_batch(unvoted, ink, 3, device=DEVICE)
+        plain = cuda_cc._vote_from_labels(unvoted, ink, cuda_cc.cc_min_label_reference(ink)[0], 3)
+        if not torch.equal(voted, plain):
+            raise AssertionError(f"{name}: device vote != plain labeler's vote on the same predictions")
+        trio_agree = float(np.mean(outs[0][0] == finish_mask_trio(voted.cpu().numpy(), prepared[1], palette)[0]))
+        if trio_agree < 0.999:
+            raise AssertionError(f"{name}: run() colors agree with the checked vote on {trio_agree}")
+        results[name] = {
+            "gflop_per_page": gflop, "padded_shape": list(padded), "pages_per_s": N_PAGES / wall,
+            "device_ms_per_batch": device_ms, "forward_tflop_s": gflop * BATCH / device_ms,
+            "peak_mib": peak_mib, "idle_share": 1 - busy_us / wall_us,
+            "cc_label_launches": launches, "card_vs_cpu_rel_logit_err": rel_err,
+            "card_vs_cpu_argmax": f32_agree, "bf16_vs_f32_decisive": bf16_decisive,
+            "bf16_vs_f32_all": bf16_all, "decisive_share": decisive_share,
+            "relabeled_px": int((voted != unvoted).sum()), "family_s": time.perf_counter() - t_family,
+            "run_top_kernels_ms": {k[:80]: us / 1e3 for k, us in top}}
+        log(f"  {name} throughput: {N_PAGES} pages at batch {BATCH} in {wall:.3f} s = "
+            f"{N_PAGES / wall:.2f} pages/s; device program {device_ms:.3f} ms a batch "
+            f"(the forward's FLOPs at {results[name]['forward_tflop_s']:.1f} TFLOP/s of it); peak {peak_mib:.1f} MiB; "
+            f"idle share {results[name]['idle_share']:.4f} (profiled run); cc_label launches {launches}; "
+            f"device vote == plain labeler's ({results[name]['relabeled_px']} px relabeled), run() colors "
+            f"agree {trio_agree:.6f} with it; {results[name]['family_s']:.1f} s")
+        log(f"  {name} profiled run, device ms by kernel: " + "; ".join(
+            f"{us / 1e3:.3f} {k[:60]}" for k, us in top))
+        del tp, bf16
+        torch.cuda.empty_cache()
+
+    # the RGB family on the library batch path, from a msgpack checkpoint
+    arch = Architecture.MOBILE_NET
+    model = os.path.join(work, "mobile_net")
+    save_checkpoint(model, params_to_jax(states["mobile_net"]), {"architecture": arch.value, "n_classes": 3})
+    bucket = (-(-out_h // 32) * 32, -(-out_w // 32) * 32)
+    images = np.zeros((LIBRARY_BATCH,) + bucket, np.uint8)
+    bins = np.zeros_like(images)
+    images[:, :out_h, :out_w] = 255 - dec[:LIBRARY_BATCH, :out_h, :out_w].cpu().numpy()  # ink bright
+    bins[:, :out_h, :out_w] = images[:, :out_h, :out_w] > 127
+    card = PixelClassifier(3, model_path=model, device=DEVICE)
+    cpu = PixelClassifier(3, model_path=model, device="cpu")
+    if card.architecture is not arch or cpu.architecture is not arch:
+        raise AssertionError(f"the checkpoint loads as {card.architecture}")
+    with backend_flags("families: mobile_net library batch", NO_TF32):
+        card.predict_batch_masks(images, bins, palette, device_vote=True)  # warm-up
+        torch.cuda.synchronize()
+        cuda_cc.launches = cuda_add_one.launches = 0
+        t0 = time.perf_counter()
+        got_pred, got_trio = card.predict_batch_masks(images, bins, palette, device_vote=True)
+        library_s, library_launches = time.perf_counter() - t0, cuda_cc.launches
+    if library_launches != cuda_cc.LAUNCHES_PER_CALL or cuda_add_one.launches:
+        raise AssertionError(f"mobile_net library batch: cc_label launches {library_launches}")
+    want_pred, want_trio = cpu.predict_batch_masks(images, bins, palette, device_vote=True)
+    agree = got_pred == want_pred
+    if agree.mean() < 0.999 or not all(np.array_equal(g[agree], w[agree]) for g, w in zip(got_trio, want_trio)):
+        raise AssertionError(f"mobile_net library batch: labels agree on {agree.mean()}, or the trio differs")
+    log(f"  mobile_net from a msgpack checkpoint, predict_batch_masks(device_vote=True) at "
+        f"{(LIBRARY_BATCH,) + bucket}: {library_s * 1e3:.1f} ms (float32, TF32 off); labels agree with "
+        f"the CPU port on {agree.mean():.6f}, trio equal wherever they agree; cc_label launches "
+        f"{library_launches}")
+    return {"families": results, "library_launches": library_launches,
+            "library_agreement": float(agree.mean())}
+
+
+@backend_flags("train families")
+def phase_train_families(trainer, work: str):
+    """The Trainer on TRAIN_FAMILIES (BatchNorm, dropout) over phase_train's
+    data at batch TRAIN_BATCH for FAMILY_EPOCHS epochs at FAMILY_LR, float32
+    with TF32 as PyTorch sets it: the BatchNorm statistics calibrated by one step with
+    momentum 0 and saved as the start checkpoint; epoch times, peak memory,
+    steady train_step ms; for the BatchNorm family one float32 step (TF32
+    off) on the card against the CPU from that checkpoint: loss, gradients
+    and updated batch_stats."""
+    import os
+
+    from page_segmentation_tpu_torch.models.bridge import params_from_jax
+    from page_segmentation_tpu_torch.models.layers import BatchNorm
+    from page_segmentation_tpu_torch.models.registry import Architecture, Optimizers
+    from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
+    from page_segmentation_tpu_torch.train import trainer as trainer_module
+    from page_segmentation_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from page_segmentation_tpu_torch.train.metrics import loss as ce_loss
+    from page_segmentation_tpu_torch.train.steps import make_step_fns
+
+    train_pages = trainer.settings.train_data.data
+    results, launches = {}, {"cc_label": 0, "add_one": 0}
+    for name in TRAIN_FAMILIES:
+        arch = Architecture(name)
+        out = os.path.join(work, f"train_{name}")
+        run = trainer_module.Trainer(trainer.settings._replace(
+            architecture=arch, n_epoch=FAMILY_EPOCHS, l_rate=FAMILY_LR, output_dir=out,
+            evaluation_data=None))
+        host = run._make_batch(train_pages[:TRAIN_BATCH], augment=False, rng=None)
+        batch = run._take_batch(run._place_batch(host))
+        batch_norms = [m for m in run.module.modules() if isinstance(m, BatchNorm)]
+        if batch_norms:  # running statistics := one batch's (a step with momentum 0)
+            momenta = [bn.momentum for bn in batch_norms]
+            for bn in batch_norms:
+                bn.momentum = 0.0
+            _, stats, _, _ = run._train_step(run._live(), run._live_state(), run.opt_state, batch, None)
+            run._assign({}, stats)
+            for bn, m in zip(batch_norms, momenta):
+                bn.momentum = m
+        start = os.path.join(work, f"start_{name}")
+        save_checkpoint(start, {"params": run.params, **run.model_state},
+                        {"architecture": name, "n_classes": 3})
+
+        cuda_cc.launches = cuda_add_one.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        history = run.train()
+        torch.cuda.synchronize()
+        train_s, peak_mib = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2 ** 20
+        launches["cc_label"] += cuda_cc.launches
+        launches["add_one"] += cuda_add_one.launches
+        losses = history["loss"]
+        if len(losses) != FAMILY_EPOCHS or not np.isfinite(losses).all():
+            raise AssertionError(f"{name}: epoch losses {losses}")
+        variables, meta = load_checkpoint(os.path.join(out, "model"))
+        if set(variables) != ({"params", "batch_stats"} if batch_norms else {"params"}):
+            raise AssertionError(f"{name}: checkpoint collections {sorted(variables)}")
+        epochs = [{"epoch": t["epoch"], "pages_per_s": t["pages"] / t["train_s"], "val_s": t["eval_s"],
+                   "checkpoint_s": t["save_s"]} for t in run.timings]
+
+        # steady steps on one uploaded batch (UNet's dropout from a generator)
+        params, state, opt = dict(run._live()), dict(run._live_state()), run.opt_state
+        dropout_rng = torch.Generator(device=DEVICE).manual_seed(SEED)
+        for _ in range(3):
+            params, state, opt, _ = run._train_step(params, state, opt, batch, dropout_rng)
+        torch.cuda.synchronize()
+        start_event, end_event = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start_event.record()
+        for _ in range(FAMILY_STEADY_STEPS):
+            params, state, opt, _ = run._train_step(params, state, opt, batch, dropout_rng)
+            run._assign(params, state)
+        end_event.record()
+        torch.cuda.synchronize()
+        step_ms = start_event.elapsed_time(end_event) / FAMILY_STEADY_STEPS
+
+        def steps():
+            state_ = (params, state, opt)
+            for _ in range(5):
+                p_, s_, o_, _ = run._train_step(*state_, batch, dropout_rng)
+                state_ = (p_, s_, o_)
+
+        wall_us, busy_us, by_name, _ = profiled(steps)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        results[name] = {"losses": losses, "val_losses": history.get("val_loss"), "train_s": train_s,
+                         "epochs": epochs, "peak_mib": peak_mib, "step_ms": step_ms,
+                         "step_device_busy_ms": busy_us / 5e3,
+                         "step_top_kernels_ms": {k[:80]: us / 5e3 for k, us in top},
+                         "batch_shape": list(batch["image"].shape), "checkpoint_epoch": meta.get("epoch")}
+        log(f"phase train families {name}: {FAMILY_EPOCHS} epochs in {train_s:.2f} s, losses "
+            f"{[round(v, 5) for v in losses]}; epochs " + ", ".join(
+                f"{e['pages_per_s']:.2f} pages/s" for e in epochs)
+            + f"; peak CUDA memory {peak_mib:.1f} MiB; steady train_step at batch {TRAIN_BATCH} on "
+            f"{tuple(batch['image'].shape)}: {step_ms:.3f} ms; checkpoint holds {sorted(variables)}")
+        log(f"  profile of 5 steps: device busy {busy_us / 5e3:.3f} ms a step of {wall_us / 5e3:.3f} ms, "
+            f"{len(by_name)} kernel names; top: " + "; ".join(f"{us / 5e3:.3f} ms {k[:70]}" for k, us in top))
+
+        if not batch_norms:
+            continue
+        # one float32 step, TF32 off, on the card and on the CPU from the start checkpoint
+        start_vars, _ = load_checkpoint(start)
+        small = run._make_batch(train_pages[:CHECK_PAGES], augment=False, rng=None)
+        got = {}
+        with backend_flags(f"{name}: card vs CPU step", NO_TF32):
+            for device in (DEVICE, "cpu"):
+                module = arch.model(3).to(device)
+                step, _ = make_step_fns(module, Optimizers.ADAM.make(1e-3), ce_loss,
+                                        device_preprocess=arch.device_preprocess())
+                tensors = {k: v.to(device) for k, v in params_from_jax(start_vars).items()}
+                p = {k: tensors[k] for k, _ in module.named_parameters()}
+                s = {k: tensors[k] for k, _ in module.named_buffers()}
+                b = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in small.items()}
+                loss_value, g, new_s = step.value_and_grad(p, s, b, with_state=True)
+                got[device] = (float(loss_value), {k: v.double().cpu() for k, v in g.items()},
+                               {k: v.double().cpu() for k, v in new_s.items()})
+            torch.cuda.synchronize()
+
+        def rel(a, b):
+            flat_a, flat_b = (torch.cat([t.flatten() for _, t in sorted(x.items())]) for x in (a, b))
+            return float((flat_a - flat_b).norm() / flat_b.norm())
+
+        (card_loss, card_g, card_s), (cpu_loss, cpu_g, cpu_s) = got[DEVICE], got["cpu"]
+        check = {"loss_rel": abs(card_loss - cpu_loss) / abs(cpu_loss), "grad_rel": rel(card_g, cpu_g),
+                 "batch_stats_rel": rel(card_s, cpu_s)}
+        results[name]["card_vs_cpu"] = check
+        log(f"  {name} card vs CPU, one float32 step from the calibrated start (TF32 off): loss "
+            f"{card_loss:.8f} vs {cpu_loss:.8f} (rel {check['loss_rel']:.3e}); gradients {check['grad_rel']:.3e} "
+            f"and updated batch_stats {check['batch_stats_rel']:.3e} relative in norm")
+        if check["loss_rel"] > 1e-5 or check["grad_rel"] > 1e-3 or check["batch_stats_rel"] > 1e-4:
+            raise AssertionError(f"{name} card vs CPU step: {check}")
+    if any(launches.values()):
+        raise AssertionError(f"kernels launched on the families' train path: {launches}")
+    return {"families": results, "launches": launches}
 
 
 def profiled(fn):
@@ -1391,6 +1766,7 @@ def profiled(fn):
     return wall_us, busy_us, by_name, len(device)
 
 
+@backend_flags("profile")
 def phase_profile(tp, pages, binaries):
     """torch.profiler over one more run of the main path: device time by
     kernel, and the share of the run's wall time in which the device ran
@@ -1453,6 +1829,8 @@ def main(argv=None) -> int:
         corpus = phase_corpus(pages, binaries, work)
         serve = phase_serve(pages, corpus["model"])
         train = phase_train(pages, binaries, work)
+        families = phase_families(pages, binaries, work)
+        train_families = phase_train_families(train.pop("trainer"), work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1466,6 +1844,9 @@ def main(argv=None) -> int:
         "serve_stats": serve["stats"], "serve_spline_pages_per_s": serve["spline_pages_per_s"],
         "corpus_stages_ms": corpus["stages_ms"], "serve_stages_ms": serve["stages_ms"]}))
     log("training: " + json.dumps({k: v for k, v in train.items() if k != "launches"}))
+    log("families: " + json.dumps(families["families"]))
+    log("training families: " + json.dumps(train_families["families"]))
+    family_launches = sum(f["cc_label_launches"] for f in families["families"].values())
     print(json.dumps({"kernels": [{
         "name": "cc_label",
         "route": "cuda",
@@ -1491,7 +1872,10 @@ def main(argv=None) -> int:
                              "predict_fast_cli": corpus["fast_launches"],
                              "serve_fused": serve["fused_launches"],
                              "serve_spline": serve["spline_launches"],
-                             "train": train["launches"]["cc_label"]},
+                             "train": train["launches"]["cc_label"],
+                             "families_throughput": family_launches,
+                             "families_library": families["library_launches"],
+                             "families_train": train_families["launches"]["cc_label"]},
         "tiled": kernel["tiled"],
     }, {
         "name": "add_one",
@@ -1503,7 +1887,8 @@ def main(argv=None) -> int:
         "launches_by_path": {"throughput": 0, "library": 0, "repro_download": add_one["launches"],
                              "predict_pipeline_cli": 0, "corpus_pallas": 0, "predict_fast_cli": 0,
                              "serve_fused": 0, "serve_spline": 0,
-                             "train": train["launches"]["add_one"]},
+                             "train": train["launches"]["add_one"], "families_throughput": 0,
+                             "families_library": 0, "families_train": train_families["launches"]["add_one"]},
         "max_abs_err": add_one["max_abs_err"],
         "ms": add_one["ms"],
         "plain_ms": add_one["plain_ms"],

@@ -15,9 +15,8 @@ defaults and error behaviour.  Ported subcommands:
 ``predict``, ``serve`` and ``train`` run on the card unless ``--device cpu``
 is given.  ``gen-masks``, ``page-segmentation`` and ``export``, and the
 options of ``train`` that are not ported (``--distributed``, ``--n_devices``
-> 1, ``--checkpoint_backend orbax``, ``--auto_resume``, ``--export_h5``,
-``--pretrained_encoder``), keep their flags and exit with an error naming
-the ROADMAP item that ports them.  A bare invocation is ``predict``; a user
+> 1, ``--checkpoint_backend orbax``, ``--auto_resume``), keep their flags
+and exit with an error naming the ROADMAP item that ports them.  A bare invocation is ``predict``; a user
 error prints one line and returns 2.
 
     python -m page_segmentation_tpu_torch.cli predict --device cpu --load MODEL \\
@@ -196,8 +195,6 @@ _TRAIN_NOT_PORTED = (
     (lambda a: a.n_devices and a.n_devices > 1, "--n_devices > 1 (data-parallel training)", "12"),
     (lambda a: a.checkpoint_backend == "orbax", "--checkpoint_backend orbax", "11"),
     (lambda a: a.auto_resume, "--auto_resume (Orbax checkpoints)", "11"),
-    (lambda a: a.export_h5, "--export_h5 (Keras .h5 checkpoints)", "10"),
-    (lambda a: a.pretrained_encoder, "--pretrained_encoder (the encoder families)", "10"),
 )
 
 
@@ -264,6 +261,8 @@ def cmd_train(args) -> int:
         balanced_sampling=args.balanced_sampling,
         balanced_sampling_strength=args.balanced_sampling_strength,
         class_weighting=args.class_weighting,
+        pretrained_encoder=args.pretrained_encoder,
+        export_h5=args.export_h5,
         device=args.device,
     )
     trainer = Trainer(settings)

@@ -18,9 +18,10 @@ import torch
 
 from ..data.dataset import SingleData
 from ..device import resolve_device
-from ..models.bridge import init_params_numpy, params_from_jax
+from ..models.bridge import init_variables_numpy, params_from_jax
 from ..models.registry import Architecture
 from ..ops.pad import bucket_shape, crop_to, pad_to
+from ..utils import gray_to_rgb
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -30,10 +31,12 @@ class PixelClassifier:
     forwards on ``device``.
 
     ``variables`` (and ``params``) hold the weights in the JAX package's
-    layout, ``{"params": {layer: {"kernel", "bias"}}}`` of numpy arrays;
-    setting either loads them into the module.  Without ``model_path`` the
-    weights are ``models/bridge.py`` ``init_params_numpy(n_classes, seed)``
-    (numpy's generator: not the JAX package's random init).
+    layout, ``{"params": ..., "batch_stats": ...}`` of numpy arrays
+    (``batch_stats`` for the BatchNorm families); setting either loads them
+    into the module.  Without ``model_path`` the weights are
+    ``models/bridge.py`` ``init_variables_numpy(module, seed)`` (numpy's
+    generator: not the JAX package's random init).  ``model_path`` is a
+    checkpoint directory or a Keras ``.h5`` (read with h5py).
     """
 
     def __init__(
@@ -71,7 +74,7 @@ class PixelClassifier:
     def variables(self, value):
         if "params" not in value:
             value = {"params": value}
-        self.module.load_state_dict(params_from_jax(value["params"]))
+        self.module.load_state_dict(params_from_jax(value))
         self._variables = dict(value)
 
     @property
@@ -84,13 +87,13 @@ class PixelClassifier:
 
     @property
     def model_state(self):
-        """The collections besides ``params`` ({} for the FCN families)."""
+        """The collections besides ``params``: ``batch_stats`` for the
+        BatchNorm families, {} for the others."""
         return {k: v for k, v in (self._variables or {}).items() if k != "params"}
 
     # ----------------------------------------------------------- params I/O
     def init_params(self, seed: int = 0) -> None:
-        skips = self.architecture is Architecture.FCN_SKIP
-        self.variables = {"params": init_params_numpy(self.n_classes, seed, skips=skips)}
+        self.variables = init_variables_numpy(self.module, seed)
 
     def _rebuild(self, architecture: Architecture) -> None:
         self.architecture = architecture
@@ -101,15 +104,24 @@ class PixelClassifier:
             self.variables = self._variables
 
     def load(self, path: str) -> None:
-        """A checkpoint directory (``params.msgpack`` + ``meta.json``);
-        ``meta["architecture"]`` rebuilds the module."""
+        """A checkpoint directory (``params.msgpack`` + ``meta.json``;
+        ``meta["architecture"]`` rebuilds the module) or a Keras ``.h5``
+        (its ``model_config`` names the architecture when it can)."""
         path = str(path)
         if path.endswith(".h5"):
-            meta_path = path[:-3] + ".meta"
-            if os.path.exists(path) or os.path.exists(meta_path):
-                raise NotImplementedError(
-                    "Keras .h5 and TF1 .meta checkpoints are not ported yet: ROADMAP queue 1 item 10")
-            raise FileNotFoundError(f"No checkpoint at {path}")
+            if not os.path.exists(path):
+                if os.path.exists(path[:-3] + ".meta"):
+                    raise NotImplementedError(
+                        "TF1 .meta checkpoints are not ported yet: ROADMAP queue 1 item 10")
+                raise FileNotFoundError(f"No checkpoint at {path}")
+            from ..models.h5_import import load_keras_variables
+
+            variables, detected = load_keras_variables(path, self.architecture, self.n_classes)
+            if detected is not None:
+                self._variables = None
+                self._rebuild(detected)
+            self.variables = variables
+            return
         from ..train.checkpoint import load_checkpoint
 
         variables, meta = load_checkpoint(path)
@@ -121,7 +133,10 @@ class PixelClassifier:
 
     # -------------------------------------------------------------- forward
     def _prepare_input(self, image: np.ndarray) -> Tuple[np.ndarray, Tuple[int, int]]:
-        """Preprocess + pad one image to its bucket: HWC float32."""
+        """Preprocess + pad one image to its bucket: HWC float32 (a gray
+        page repeated to 3 channels for the RGB families)."""
+        if self.rgb:
+            image = gray_to_rgb(image)
         arr = np.asarray(self.preprocess(np.asarray(image, dtype=np.float32)), dtype=np.float32)
         if arr.ndim == 2:
             arr = arr[..., None]
@@ -144,12 +159,17 @@ class PixelClassifier:
         normalize, forward, argmax, then (``ink`` given: (N, H, W // 8)
         MSB-first bits, or (N, H, W) uint8) the cc-majority vote, and the
         class map as (N, H, W // 4) 2-bit codes (``pack``) or (N, H, W)
-        uint8."""
+        uint8.  The RGB families normalize the padded page repeated to 3
+        channels, as the JAX package does on the host, so the padding
+        becomes the family's normalized 0, not 0."""
         from ..ops.cuda_cc import cc_vote_batch
         from .output import pack_classes_device, unpack_bits_device
 
         with torch.inference_mode():
-            x = self.architecture.device_preprocess()(images.to(torch.float32)[:, None])
+            x = images.to(torch.float32)[..., None]
+            if self.rgb:
+                x = x.expand(-1, -1, -1, 3)
+            x = self.architecture.device_preprocess()(x).permute(0, 3, 1, 2)
             pred = self.module.forward_nchw(x).argmax(dim=1).to(torch.uint8)
             if ink is not None:
                 mask = unpack_bits_device(ink) if ink.shape[-1] * 8 == pred.shape[-1] else ink != 0

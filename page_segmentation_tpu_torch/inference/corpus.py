@@ -54,10 +54,11 @@ class RawCorpusPredictor:
     """Group raw pages by (shape, line height) and stream each group through
     a ThroughputPredictor on the classifier's device.
 
-    ``classifier``: a PixelClassifier of a grayscale FCN family holding the
-    model.  ``window`` bounds host memory: at most two ``window``-sized
-    slices of full-resolution pages are resident at once (the slice being
-    predicted and the next one decoding on the prefetch thread).
+    ``classifier``: a PixelClassifier holding the model (any architecture;
+    the RGB families normalize on the device in their own mode).
+    ``window`` bounds host memory: at most two ``window``-sized slices of
+    full-resolution pages are resident at once (the slice being predicted
+    and the next one decoding on the prefetch thread).
     ``cc_vote`` is passed to the ThroughputPredictor as it is: True votes on
     the host in the finish stage, ``"pallas"`` on the card's CUDA labeler.
     """
@@ -76,9 +77,6 @@ class RawCorpusPredictor:
         binarize: str = "threshold",
         reuse_output_buffers: bool = False,
     ):
-        if classifier.rgb:
-            raise NotImplementedError(
-                "the RGB encoder families are not ported yet: ROADMAP queue 1 item 10")
         if int8:
             raise NotImplementedError("int8 serving is not ported yet: ROADMAP queue 1 item 13")
         if binarize not in ("threshold", "otsu"):

@@ -35,24 +35,33 @@ def nearest_index_array(out_dim: int, in_dim: int) -> np.ndarray:
 def _device_normalize(out_h: int, out_w: int, pad_h: int, pad_w: int,
                       preprocess_mode: str = "gray"):
     """The fused program's preprocessing: cubic resample to the normalized
-    shape, invert + /255, zero-pad to the bucket.  (N, hd, wd) uint8 ->
-    (N, 1, pad_h, pad_w) float32.
+    shape, invert + normalize, zero-pad to the bucket.  (N, hd, wd) uint8 ->
+    (N, C, pad_h, pad_w) float32.
+
+    ``preprocess_mode='gray'`` is invert + /255 fused (C = 1).  The RGB
+    encoder modes invert to ``255 - img`` (the prepared-page convention:
+    ink bright), repeat it to 3 channels and apply the family's Keras
+    ``preprocess_input`` twin ('caffe' ResNet50, 'tf' MobileNetV2, 'torch'
+    EfficientNet); the zero pad comes after it, as in the JAX program.
 
     ``jax.image.resize(method="cubic")`` is Keys cubic (a = -0.5) with
     antialiasing; ``F.interpolate(mode="bicubic", antialias=True)`` is the
     torch resampler that matches it (without antialias it is off by tens of
     gray levels when downsampling)."""
+    pre = None
     if preprocess_mode != "gray":
-        raise NotImplementedError(
-            f"preprocess_mode={preprocess_mode!r}: only 'gray' (the FCN "
-            "families) is ported; the RGB encoder modes come with those models"
-        )
+        from ..models.registry import _make_preprocess
+
+        pre = _make_preprocess(preprocess_mode, device=True)
 
     def normalize(pages_u8):
         img = pages_u8.to(torch.float32)[:, None]
         img = F.interpolate(img, size=(out_h, out_w), mode="bicubic",
                             antialias=True, align_corners=False)
-        img = 1.0 - img / 255.0
+        if pre is None:
+            img = 1.0 - img / 255.0
+        else:  # NHWC for the channel-last preprocess, then back
+            img = pre((255.0 - img).permute(0, 2, 3, 1).expand(-1, -1, -1, 3)).permute(0, 3, 1, 2)
         return F.pad(img, (0, pad_w - out_w, 0, pad_h - out_h))
 
     return normalize

@@ -1,93 +1,144 @@
-"""Weights bridge between the JAX param tree and the port's state_dict.
+"""Weights bridge between the JAX variables and the port's state_dict.
 
-The JAX FCN param tree is a nested dict ``{layer: {"kernel", "bias"}}`` of
-arrays: conv kernels HWIO ``(kh, kw, in, out)`` and Keras conv-transpose
-kernels ``(kh, kw, out, in)``.  Both map to torch's layout (conv
-``(out, in, kh, kw)``, conv-transpose ``(in, out, kh, kw)``) by
-``transpose(3, 2, 0, 1)``, and back by ``transpose(2, 3, 1, 0)``
-(:func:`params_to_jax`).  Any tree of the params' shapes (the optimizer's
-moments) maps the same way.
+The JAX variables are nested dicts of arrays: ``params`` (conv kernels HWIO
+``(kh, kw, in, out)``, Keras conv-transpose kernels ``(kh, kw, out, in)``,
+depthwise kernels ``(kh, kw, 1, C)``, biases, BatchNorm ``scale`` and
+``bias``) and, for the BatchNorm families, ``batch_stats`` (``mean``,
+``var``).  A leaf's path is its state_dict name: ``encoder/stage0_block0/
+c1/conv/kernel`` is ``encoder.stage0_block0.c1.conv.weight``.  Every kernel
+maps to torch's layout (conv ``(out, in / groups, kh, kw)``, conv-transpose
+``(in, out, kh, kw)``) by ``transpose(3, 2, 0, 1)``, and back by
+``transpose(2, 3, 1, 0)``; every other leaf keeps its name and values, the
+``batch_stats`` leaves as the BatchNorm buffers.  Any tree of the params'
+shapes (the optimizer's moments) maps the same way.
 
+:func:`init_variables_numpy` draws a module's variables from a seed.
 Checkpoints (``params.msgpack``) are read by ``train/checkpoint.py``.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
 
-_ENCODER = [("conv1", 1, 20), ("conv2", 20, 30), ("conv3", 30, 40), ("conv4", 40, 40),
-            ("conv5", 40, 60), ("conv6", 60, 60), ("conv7", 60, 80)]
-_DECODER_SKIP = [("deconv1", 80, 80, 5), ("deconv2", 80, 60, 2), ("deconv3", 120, 40, 5),
-                 ("deconv4", 100, 30, 2), ("deconv5", 70, 20, 2)]
+_LEAVES = ("weight", "bias", "scale", "mean", "var")
+_STATS = ("mean", "var")  # BatchNorm buffers: flax's batch_stats
 
 
-def params_from_jax(tree: Mapping[str, Mapping[str, np.ndarray]]) -> Dict[str, torch.Tensor]:
-    """JAX param tree (``{"conv1": {"kernel", "bias"}, ...}``, optionally
-    wrapped as ``{"params": tree}``) -> the port's float32 state_dict."""
-    if "params" in tree:
-        tree = tree["params"]
+def _flatten(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _flatten(value, path + (key,))
+        else:
+            yield path + (key,), value
+
+
+def _set(tree: dict, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX variables (``{"params": ..., "batch_stats": ...}``, the latter
+    optional) or a bare params tree -> the port's float32 state_dict
+    (parameters and, with ``batch_stats``, the BatchNorm buffers)."""
+    collections = [tree["params"], tree.get("batch_stats", {})] if "params" in tree else [tree]
     state = {}
-    for layer, leaves in tree.items():
-        kernel = np.asarray(leaves["kernel"], np.float32)
-        if kernel.ndim != 4:
-            raise ValueError(f"{layer}/kernel must be 4-D, got {kernel.shape}")
-        state[f"{layer}.weight"] = torch.from_numpy(
-            np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
-        state[f"{layer}.bias"] = torch.from_numpy(np.asarray(leaves["bias"], np.float32).copy())
+    for collection in collections:
+        for path, leaf in _flatten(collection):
+            arr = np.asarray(leaf, np.float32)
+            name = ".".join(path[:-1])
+            if path[-1] == "kernel":
+                if arr.ndim != 4:
+                    raise ValueError(f"{'/'.join(path)} must be 4-D, got {arr.shape}")
+                state[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(arr.transpose(3, 2, 0, 1)))
+            else:
+                state[f"{name}.{path[-1]}"] = torch.from_numpy(arr.copy())
     return state
 
 
-def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarray]]:
-    """The port's state_dict (``{"conv1.weight", "conv1.bias", ...}``, any
-    device) -> the JAX param tree of float32 numpy arrays; the exact inverse
-    of :func:`params_from_jax`."""
-    tree: Dict[str, Dict[str, np.ndarray]] = {}
+def params_to_jax(state: Mapping[str, torch.Tensor]):
+    """The port's state_dict (any device) -> the JAX tree of float32 numpy
+    arrays: the bare params tree, or ``{"params", "batch_stats"}`` when the
+    state holds BatchNorm buffers; the exact inverse of
+    :func:`params_from_jax`."""
+    params: dict = {}
+    stats: dict = {}
     for name, value in state.items():
-        layer, leaf = name.rsplit(".", 1)
+        *path, leaf = name.split(".")
+        if leaf not in _LEAVES:
+            raise ValueError(f"unexpected state_dict entry {name!r}")
         arr = value.detach().to("cpu", torch.float32).numpy()
         if leaf == "weight":
             if arr.ndim != 4:
                 raise ValueError(f"{name} must be 4-D, got {arr.shape}")
-            tree.setdefault(layer, {})["kernel"] = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
-        elif leaf == "bias":
-            tree.setdefault(layer, {})["bias"] = arr.copy()
+            _set(params, path + ["kernel"], np.ascontiguousarray(arr.transpose(2, 3, 1, 0)))
         else:
-            raise ValueError(f"unexpected state_dict entry {name!r}")
-    return tree
+            _set(stats if leaf in _STATS else params, path + [leaf], arr.copy())
+    return {"params": params, "batch_stats": stats} if stats else params
 
 
-# decoder input widths of FCN, which joins no skip maps
-_DECODER_PLAIN_IN = {"deconv3": 60, "deconv4": 40, "deconv5": 30}
+def _jax_shape(name: str, tensor: torch.Tensor) -> Tuple[int, ...]:
+    shape = tuple(tensor.shape)
+    return tuple(shape[i] for i in (2, 3, 1, 0)) if name.endswith(".weight") else shape
 
 
-def _layer_shapes(n_classes: int, in_channels: int = 1,
-                  skips: bool = True) -> Dict[str, Tuple[int, ...]]:
-    """FCNSkip (``skips``) or FCN kernel shapes in the JAX layout."""
-    shapes = {}
-    for name, cin, cout in _ENCODER:
-        shapes[name] = (5, 5, in_channels if name == "conv1" else cin, cout)
-    for name, cin, cout, k in _DECODER_SKIP:
-        cin = cin if skips else _DECODER_PLAIN_IN.get(name, cin)
-        shapes[name] = (k, k, cout, cin)  # Keras transpose layout (kh, kw, out, in)
-    shapes["logits"] = (1, 1, 50 if skips else 20, n_classes)
-    return shapes
+def _variables(module: torch.nn.Module, kernel) -> dict:
+    """The module's variables in the JAX layout: ``kernel(shape)`` for each
+    kernel in registration order, zero biases, BatchNorm scale 1, mean 0,
+    var 1 (flax's initializers)."""
+    params: dict = {}
+    stats: dict = {}
+    for name, p in module.named_parameters():
+        *path, leaf = name.split(".")
+        shape = _jax_shape(name, p)
+        if leaf == "weight":
+            _set(params, path + ["kernel"], kernel(shape))
+        else:
+            fill = np.ones if leaf == "scale" else np.zeros
+            _set(params, path + [leaf], fill(shape, np.float32))
+    for name, b in module.named_buffers():
+        *path, leaf = name.split(".")
+        fill = np.ones if leaf == "var" else np.zeros
+        _set(stats, path + [leaf], fill(tuple(b.shape), np.float32))
+    return {"params": params, "batch_stats": stats} if stats else {"params": params}
+
+
+def init_variables_numpy(module: torch.nn.Module, seed: int) -> dict:
+    """Random variables of ``module`` in the JAX layout, under flax's law:
+    glorot-uniform kernels (fan in + out over the receptive field, whatever
+    the layout: conv, conv-transpose, depthwise), zero biases, BatchNorm
+    scale 1 / bias 0 / mean 0 / var 1; kernels drawn in the module's
+    registration order from a ``numpy.random.Generator`` seeded with
+    ``seed``.  Only the module's shapes are read (a meta-device module
+    will do)."""
+    rng = np.random.default_rng(seed)
+
+    def glorot(shape):
+        kh, kw, a, b = shape
+        limit = np.sqrt(6.0 / ((a + b) * kh * kw))
+        return rng.uniform(-limit, limit, size=shape).astype(np.float32)
+
+    return _variables(module, glorot)
+
+
+def zero_variables(module: torch.nn.Module) -> dict:
+    """All-zero variables of ``module`` in the JAX layout (a template)."""
+    variables = _variables(module, lambda shape: np.zeros(shape, np.float32))
+    return {k: _zeros(tree) for k, tree in variables.items()}
+
+
+def _zeros(tree):
+    return {k: _zeros(v) if isinstance(v, dict) else np.zeros_like(v) for k, v in tree.items()}
 
 
 def init_params_numpy(n_classes: int, seed: int, in_channels: int = 1, skips: bool = True):
-    """Random FCNSkip (``skips``) or FCN params in the JAX layout:
-    glorot-uniform kernels (fan in/out over the receptive field, as flax's
-    initializer with the transpose layers' in_axis=3/out_axis=2) and zero
-    biases, drawn from a ``numpy.random.Generator`` seeded with ``seed``."""
-    rng = np.random.default_rng(seed)
-    tree = {}
-    for name, shape in _layer_shapes(n_classes, in_channels, skips).items():
-        kh, kw, a, b = shape
-        fan_sum = (a + b) * kh * kw  # fan_in + fan_out, either layout
-        limit = np.sqrt(6.0 / fan_sum)
-        tree[name] = {
-            "kernel": rng.uniform(-limit, limit, size=shape).astype(np.float32),
-            "bias": np.zeros(shape[2] if name.startswith("deconv") else shape[3], np.float32),
-        }
-    return tree
+    """Random FCNSkip (``skips``) or FCN params in the JAX layout
+    (:func:`init_variables_numpy`)."""
+    from .fcn import FCN, FCNSkip
+
+    with torch.device("meta"):
+        module = (FCNSkip if skips else FCN)(n_classes, in_channels=in_channels)
+    return init_variables_numpy(module, seed)["params"]

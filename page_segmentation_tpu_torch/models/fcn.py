@@ -12,12 +12,11 @@ float32.  Parameter names follow the JAX param tree (``conv1.weight`` for
 from __future__ import annotations
 
 import torch
-from torch import nn
 
-from .layers import TFConv, TFConvTranspose, max_pool_same
+from .layers import Segmenter, TFConv, TFConvTranspose, max_pool_same
 
 
-class _FCNBase(nn.Module):
+class _FCNBase(Segmenter):
     skips = False
 
     def __init__(self, n_classes: int, dtype: torch.dtype = torch.float32,
@@ -49,7 +48,7 @@ class _FCNBase(nn.Module):
     def _join(self, up, skip):
         return torch.cat([up, skip], dim=1) if self.skips else up
 
-    def forward_nchw(self, x):
+    def forward_nchw(self, x, dropout_rng=None):
         """(N, C, H, W) -> float32 logits (N, n_classes, H, W); H, W
         multiples of 8."""
         x = x.to(self.dtype)
@@ -66,11 +65,6 @@ class _FCNBase(nn.Module):
         deconv4 = self._join(self.deconv4(deconv3), conv3)
         deconv5 = self._join(self.deconv5(deconv4), conv2)
         return self.logits(deconv5).float()
-
-    def forward(self, image):
-        """(N, H, W, C) -> float32 logits (N, H, W, n_classes), like the
-        JAX module."""
-        return self.forward_nchw(image.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 class FCNSkip(_FCNBase):

@@ -4,8 +4,8 @@ Counterpart of ``Architecture`` in ``page_segmentation_tpu/models/registry.py``:
 the 14 names, their preprocess modes (Keras ``preprocess_input``
 conventions: 'gray' /255, 'caffe' BGR minus the ImageNet means, 'tf' to
 [-1, 1], 'torch' [0, 1] then ImageNet mean/std), the host and device (torch)
-normalization functions and the stride factors.  ``model()`` builds the FCN
-families; the encoder families come with ROADMAP queue 1 item 10.
+normalization functions and the stride factors.  ``model()`` builds each
+of the 14 in eval mode (the JAX modules' default ``train=False``).
 ``Optimizers`` names the seven optimizers; ``make`` builds one as
 ``train/optim.py`` writes it, with Keras' per-tensor ``clipnorm`` on by
 default.
@@ -64,22 +64,31 @@ class Architecture(enum.Enum):
 
     def model(self, n_classes: int, dtype=None, s2d_stem: bool = False):
         """The torch module of this architecture, computing in ``dtype``
-        (float32 by default)."""
+        (float32 by default), in eval mode."""
         if s2d_stem:
             raise NotImplementedError(
                 "s2d_stem (the space-to-depth stem rewrite) is not ported yet: "
                 "ROADMAP queue 1 item 13")
         dtype = dtype or torch.float32
-        if self is Architecture.FCN_SKIP:
-            from .fcn import FCNSkip
+        if self.value.startswith("effb"):
+            from .efficientnet import EffNetSeg
 
-            return FCNSkip(n_classes, dtype=dtype)
-        if self is Architecture.FCN:
-            from .fcn import FCN
+            return EffNetSeg(n_classes, variant=self.value, dtype=dtype).eval()
+        from .fcn import FCN, FCNSkip
+        from .mobilenet import MobileNetSeg
+        from .res_unet import ResUNet
+        from .resnet import ResNet50Seg
+        from .unet import UNet
 
-            return FCN(n_classes, dtype=dtype)
-        raise NotImplementedError(
-            f"architecture {self.value!r} is not ported yet: ROADMAP queue 1 item 10")
+        cls = {
+            Architecture.FCN_SKIP: FCNSkip,
+            Architecture.FCN: FCN,
+            Architecture.UNET: UNet,
+            Architecture.RES_UNET: ResUNet,
+            Architecture.RES_NET: ResNet50Seg,
+            Architecture.MOBILE_NET: MobileNetSeg,
+        }[self]
+        return cls(n_classes, dtype=dtype).eval()
 
     @property
     def preprocess_mode(self) -> str:

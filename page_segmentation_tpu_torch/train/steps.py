@@ -19,8 +19,19 @@ scales by its true class's weight (``loss_weights``).  The monitored
 it as ``loss_weighted``.
 
 ``params`` are the module's parameters as a dict of tensors (its
-``state_dict`` layout) and ``opt_state`` the ``train/optim.py`` state; the
-train step returns new ones and leaves its inputs as they were.
+``state_dict`` layout), ``model_state`` its BatchNorm buffers in the same
+layout ({} for the families without BatchNorm) and ``opt_state`` the
+``train/optim.py`` state; the train step returns new ones and leaves its
+inputs as they were.
+
+The train step runs the module in training mode, as the JAX step applies
+the flax module with ``train=True`` and ``mutable=["batch_stats"]``:
+BatchNorm normalizes with the batch's statistics and the step collects the
+running statistics each BatchNorm computed (``models/layers.py``), and
+``dropout_rng`` (a ``torch.Generator``) drives the dropout of the models
+that have it.  The eval step runs in eval mode on the running statistics.
+Parameters that the loss does not reach (EfficientNet's dead tail) get zero
+gradients, as ``jax.grad`` gives them.
 """
 from __future__ import annotations
 
@@ -30,6 +41,7 @@ import torch
 import torch.utils.checkpoint
 from torch.func import functional_call
 
+from ..models.layers import BatchNorm
 from . import metrics as M
 from .optim import map_tree
 
@@ -50,15 +62,16 @@ def make_step_fns(
         -> (params, model_state, opt_state, metrics)
     eval_step(params, model_state, batch) -> metrics
 
-    Metrics are 0-d tensors on the batch's device.  ``model_state`` is the
-    models' non-param state ({} for the FCN families); ``dropout_rng`` is
-    accepted for the JAX signature (the FCN families have no dropout).
-    ``skip_nonfinite``: a step whose loss or gradients are not finite keeps
-    the params and optimizer state it was given and reports ``nonfinite``
-    = 1.  ``remat`` recomputes the forward in the backward pass
-    (``torch.utils.checkpoint``) instead of keeping its activations.
-    ``train_step.value_and_grad(params, model_state, batch)`` gives the
-    optimized loss and the gradients of one batch.
+    Metrics are 0-d tensors on the batch's device.  ``skip_nonfinite``: a
+    step whose loss or gradients are not finite keeps the params, BatchNorm
+    statistics and optimizer state it was given and reports ``nonfinite`` =
+    1.  ``remat`` recomputes the forward in the backward pass
+    (``torch.utils.checkpoint``) instead of keeping its activations; the
+    recomputation draws the same dropout mask.
+    ``train_step.value_and_grad(params, model_state, batch,
+    dropout_rng=None, with_state=False)`` gives the optimized loss and the
+    gradients of one batch (and, ``with_state``, the new BatchNorm
+    statistics).
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -109,31 +122,47 @@ def make_step_fns(
             "fgpa": M.fgpa(batch["mask"], logits, batch["binary"], weights=w),
         }
 
-    def forward(params, image):
-        return functional_call(module, params, (image,))
+    batch_norms = [(name, m) for name, m in module.named_modules() if isinstance(m, BatchNorm)]
 
-    def loss_and_logits(params, batch):
-        image = batch["image"]
-        if remat:
-            logits = torch.utils.checkpoint.checkpoint(forward, params, image, use_reentrant=False)
-        else:
-            logits = forward(params, image)
-        weights = batch.get("loss_weights", batch.get("weights"))
-        return loss_fn(batch["mask"], logits, weights=weights), logits
+    def forward(params, model_state, image, dropout_rng, rng_state):
+        if dropout_rng is not None:  # a recomputation (remat) draws the same mask
+            dropout_rng.set_state(rng_state)
+        return functional_call(module, {**params, **model_state}, (image,),
+                               {"dropout_rng": dropout_rng})
 
-    def grads_of(params, batch):
+    def collect_stats():
+        """The running statistics each BatchNorm computed in the forward."""
+        new_state = {}
+        for name, bn in batch_norms:
+            new_state[f"{name}.mean"], new_state[f"{name}.var"] = bn.updated_stats
+            bn.updated_stats = None
+        return new_state
+
+    def grads_of(params, model_state, batch, dropout_rng):
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        loss_value, logits = loss_and_logits(leaves, batch)
-        grads = torch.autograd.grad(loss_value, list(leaves.values()))
-        return loss_value.detach(), logits.detach(), dict(zip(leaves, grads))
+        args = (leaves, model_state, batch["image"], dropout_rng,
+                dropout_rng.get_state() if dropout_rng is not None else None)
+        module.train()
+        try:
+            if remat:
+                logits = torch.utils.checkpoint.checkpoint(forward, *args, use_reentrant=False)
+            else:
+                logits = forward(*args)
+            weights = batch.get("loss_weights", batch.get("weights"))
+            loss_value = loss_fn(batch["mask"], logits, weights=weights)
+            grads = torch.autograd.grad(loss_value, list(leaves.values()), allow_unused=True,
+                                        materialize_grads=True)
+        finally:
+            module.eval()
+        return loss_value.detach(), logits.detach(), dict(zip(leaves, grads)), collect_stats()
 
-    def value_and_grad(params, model_state, batch):
-        loss_value, _, grads = grads_of(params, unpack(batch))
-        return loss_value, grads
+    def value_and_grad(params, model_state, batch, dropout_rng=None, with_state=False):
+        loss_value, _, grads, new_state = grads_of(params, model_state, unpack(batch), dropout_rng)
+        return (loss_value, grads, new_state) if with_state else (loss_value, grads)
 
     def train_step(params, model_state, opt_state, batch, dropout_rng=None):
         batch = unpack(batch)
-        loss_value, logits, grads = grads_of(params, batch)
+        loss_value, logits, grads, new_state = grads_of(params, model_state, batch, dropout_rng)
         with torch.no_grad():
             updates, new_opt_state = optimizer.update(grads, opt_state, params)
             new_params = {k: v.detach() + updates[k] for k, v in params.items()}
@@ -147,18 +176,21 @@ def make_step_fns(
                     return torch.where(finite, new, old)
 
                 new_params = {k: keep(v, params[k].detach()) for k, v in new_params.items()}
+                new_state = {k: keep(v, model_state[k]) for k, v in new_state.items()}
                 new_opt_state = map_tree(keep, new_opt_state, opt_state)
                 step_metrics["nonfinite"] = 1.0 - finite.to(torch.float32)
             if n_cw:
                 step_metrics["loss_weighted"] = loss_value
             else:
                 step_metrics["loss"] = loss_value
-        return new_params, model_state, new_opt_state, step_metrics
+        return new_params, new_state, new_opt_state, step_metrics
 
     def eval_step(params, model_state, batch):
+        module.eval()
         with torch.no_grad():
             batch = unpack(batch)
-            return compute_metrics(batch, forward(params, batch["image"]))
+            logits = functional_call(module, {**params, **model_state}, (batch["image"],))
+            return compute_metrics(batch, logits)
 
     train_step.value_and_grad = value_and_grad
     return train_step, eval_step

@@ -18,11 +18,16 @@ epoch])``, as the JAX trainer does, so both packages see the same batches
 in the same order; device augmentation draws from a ``torch.Generator``
 seeded from (seed, epoch).
 
-The live weights are the module's parameters; ``Trainer.params`` reads and
-writes them as the JAX param tree of numpy arrays.  A fresh run starts from
-``PixelClassifier``'s weights (``init_params_numpy``: not flax's init), so
-runs compared with the JAX package start both from one checkpoint
-(``load``).
+The live weights are the module's parameters and, for the BatchNorm
+families, its buffers; ``Trainer.params`` and ``Trainer.model_state`` read
+and write them as the JAX param tree and ``{"batch_stats": ...}`` of numpy
+arrays, and checkpoints hold both in flax's layout.  Each epoch's dropout
+masks (UNet) come from a ``torch.Generator`` seeded from (seed, epoch).  A
+fresh run starts from ``PixelClassifier``'s weights
+(``init_variables_numpy``: not flax's init), so runs compared with the JAX
+package start both from one checkpoint (``load``).  ``pretrained_encoder``
+loads an encoder from a Keras ``.h5`` or a provisioned encoder directory;
+``export_h5`` writes a Keras ``.h5`` beside each checkpoint (h5py).
 """
 from __future__ import annotations
 
@@ -125,11 +130,11 @@ class TrainSettings(NamedTuple):
     device_augmentation: bool = False  # the affine on the device
     remat: bool = False  # recompute the forward in the backward pass
     auto_resume: bool = False  # Orbax only: ROADMAP queue 1 item 11
-    pretrained_encoder: Optional[str] = None  # ROADMAP queue 1 item 10
+    pretrained_encoder: Optional[str] = None  # a backbone .h5 or encoder directory
     distributed: bool = False  # ROADMAP queue 1 item 12
     # uint8 pixels and masks plus valid dims, normalized on the device
     compact_transfer: bool = True
-    export_h5: bool = False  # ROADMAP queue 1 item 10
+    export_h5: bool = False  # also write <model_name>.h5 with each checkpoint
     # apply the optimizer once every k steps on the mean of the k
     # micro-batch gradients; 1 = off
     grad_accum: int = 1
@@ -170,10 +175,6 @@ class Trainer:
         self._class_weight_cache = {}
         if s.distributed or (s.n_devices and s.n_devices > 1):
             raise _not_ported("training over several devices (distributed, n_devices > 1)", "12")
-        if s.export_h5:
-            raise _not_ported("export_h5 (Keras .h5 checkpoints)", "10")
-        if s.pretrained_encoder:
-            raise _not_ported("pretrained_encoder (the encoder families)", "10")
         if s.checkpoint_backend == "orbax" or s.auto_resume:
             from .checkpoint import OrbaxCheckpointer
 
@@ -229,7 +230,15 @@ class Trainer:
             classifier = PixelClassifier(s.n_classes, architecture=s.architecture,
                                          seed=s.seed, device="cpu")
         self.params = classifier.params
-        self._model_state = {}
+        self.model_state = classifier.model_state  # batch_stats for the BatchNorm families
+        if s.pretrained_encoder:
+            from ..models.h5_import import load_encoder_into
+
+            variables = load_encoder_into({"params": self.params, **self.model_state},
+                                          s.architecture, s.pretrained_encoder)
+            self.params = variables["params"]
+            self.model_state = {k: v for k, v in variables.items() if k != "params"}
+            logger.info(f"Loaded pretrained encoder from {s.pretrained_encoder}")
         self.opt_state = self.optimizer.init(self._live())
 
         # resume: optimizer state and loop counters with the weights
@@ -285,28 +294,41 @@ class Trainer:
     @property
     def params(self):
         """The weights as the JAX param tree of numpy arrays."""
-        return params_to_jax(self.module.state_dict())
+        return params_to_jax(self._live())
 
     @params.setter
     def params(self, tree) -> None:
-        self.module.load_state_dict(params_from_jax(tree))
+        self._assign(params_from_jax(tree))
 
     @property
     def model_state(self) -> dict:
-        """Non-param collections ({} for the FCN families)."""
-        return self._model_state
+        """Non-param collections: ``{"batch_stats": ...}`` for the
+        BatchNorm families, {} for the others."""
+        stats = self._live_state()
+        return {"batch_stats": params_to_jax(stats)["batch_stats"]} if stats else {}
 
     @model_state.setter
     def model_state(self, value) -> None:
-        self._model_state = dict(value or {})
+        if value and "batch_stats" in value:
+            self._assign({}, params_from_jax({"params": {}, "batch_stats": value["batch_stats"]}))
 
     def _live(self) -> dict:
         return dict(self.module.named_parameters())
 
-    def _assign(self, params: dict) -> None:
+    def _live_state(self) -> dict:
+        """The BatchNorm buffers ({} without BatchNorm)."""
+        return dict(self.module.named_buffers())
+
+    def _assign(self, params: dict, state: Optional[dict] = None) -> None:
+        """Copy ``params`` (every parameter) and ``state`` (every buffer, when
+        given) into the module."""
         with torch.no_grad():
-            for name, p in self.module.named_parameters():
-                p.copy_(params[name])
+            if params:
+                for name, p in self.module.named_parameters():
+                    p.copy_(params[name])
+            if state is not None:
+                for name, b in self.module.named_buffers():
+                    b.copy_(state[name])
 
     # ------------------------------------------------------------- baseline
     def _log_baseline(self):
@@ -561,6 +583,8 @@ class Trainer:
             if device_augment:
                 generator = torch.Generator(device=self.device)
                 generator.manual_seed(int(np.random.SeedSequence([s.seed, epoch]).generate_state(1)[0]))
+            dropout_rng = torch.Generator(device=self.device)
+            dropout_rng.manual_seed(int(np.random.SeedSequence([s.seed, epoch, 1]).generate_state(1)[0]))
             epoch_metrics = []
             batches = self._bucketed_batches(s.train_data, s.batch_size, shuffle_rng=rng)
             with ThreadPoolExecutor(max_workers=1) as prefetch:
@@ -571,10 +595,10 @@ class Trainer:
                         next_batch = prefetch.submit(build_batch, batches[index + 1])
                     if device_augment:
                         batch = self._augment_on_device(batch, generator)
-                    new_params, self._model_state, self.opt_state, step_metrics = self._train_step(
-                        self._live(), self._model_state, self.opt_state, batch, None
+                    new_params, new_state, self.opt_state, step_metrics = self._train_step(
+                        self._live(), self._live_state(), self.opt_state, batch, dropout_rng
                     )
-                    self._assign(new_params)
+                    self._assign(new_params, new_state)
                     skipped_step = False
                     if s.skip_nonfinite:
                         if float(step_metrics["nonfinite"]) > 0:
@@ -644,7 +668,8 @@ class Trainer:
             if improved:
                 best_value = current
                 wait = 0
-                best_params = {k: v.detach().clone() for k, v in self._live().items()}
+                best_params = tuple({k: v.detach().clone() for k, v in live.items()}
+                                    for live in (self._live(), self._live_state()))
                 if s.save_best_model_only:
                     self._save(best_value, epoch, lr=lr, best_value=best_value, wait=wait,
                                global_step=global_step)
@@ -675,7 +700,7 @@ class Trainer:
                 break
 
         if s.early_stopping_restore_best_weights and best_params is not None:
-            self._assign(best_params)
+            self._assign(*best_params)
         scalars.close()
         return history
 
@@ -696,7 +721,7 @@ class Trainer:
         results = []
         for samples in self._bucketed_batches(dataset, self.settings.batch_size):
             batch = self._take_batch(self._place_batch(self._make_batch(samples, augment=False, rng=None)))
-            results.append((len(samples), self._eval_step(self._live(), self._model_state, batch)))
+            results.append((len(samples), self._eval_step(self._live(), self._live_state(), batch)))
         return _weighted_means(results)
 
     # --------------------------------------------------------------- helpers
@@ -727,12 +752,19 @@ class Trainer:
             **{k: (float(v) if v is not None else None) for k, v in loop_state.items()},
         }
         path = os.path.join(s.output_dir, s.model_name + s.model_suffix)
+        variables = {"params": self.params, **self.model_state}
         save_checkpoint(
             path,
-            {"params": self.params, **self._model_state},
+            variables,
             meta=meta,
             opt_state=None if s.save_weights_only else self.optimizer.state_dict(self.opt_state),
         )
+        if s.export_h5:
+            # the reference's interchange artifact: a Keras-legacy .h5
+            from ..models.h5_export import save_keras_variables
+
+            save_keras_variables(os.path.join(s.output_dir, s.model_name + ".h5"), variables,
+                                 s.architecture)
 
     def _diagnostic_samples(self, dataset: Dataset):
         for d in dataset.data[:10]:

@@ -85,8 +85,6 @@ def test_train_checkpoint_loads_in_both_clis_predict(tmp_path, data_dir, capsys)
     (["--n_devices", "2"], "item 12"),
     (["--checkpoint_backend", "orbax"], "item 11"),
     (["--auto_resume"], "item 11"),
-    (["--export_h5"], "item 10"),
-    (["--pretrained_encoder", "enc.h5"], "item 10"),
 ])
 def test_unported_train_options_exit_2_with_one_line(tmp_path, capsys, flag, item):
     assert main(["train", "--device", "cpu", "--output", str(tmp_path / "o")] + flag) == 2

@@ -158,12 +158,6 @@ def test_unported_and_invalid_options_raise(classifier):
     with pytest.raises(ValueError, match="binarize"):
         _runner(classifier, binarize="sauvola")
 
-    class RgbFamily:
-        rgb = True
-
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _runner(RgbFamily())
-
 
 def test_bilevel_png_matches_jax(tmp_path):
     rng = np.random.default_rng(0)

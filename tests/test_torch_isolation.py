@@ -2,7 +2,9 @@
 chip_smoke.py, imports jax, flax, optax or the JAX package; and its entry
 points run on the card by default, raising where there is none."""
 import ast
+import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -32,6 +34,56 @@ def test_sources_import_nothing_of_jax(path):
     for name in _imported_roots(path):
         root = name.split(".")[0]
         assert root not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+def _code_strings(path):
+    """The string constants of a source that are not docstrings."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docstrings = {id(node.value) for node in ast.walk(tree)
+                  if isinstance(node, ast.Expr) and isinstance(node.value, ast.Constant)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docstrings:
+            yield node.value
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_sources_name_no_path_in_the_jax_package(path):
+    """No string the code uses names the JAX package's directory, as a path
+    to a file there (a manifest, a library) or as one of its parts; a
+    ``file.py:line`` citation (``chip_smoke.py``'s ``replaces``) opens
+    nothing."""
+    for text in _code_strings(path):
+        if re.fullmatch(r"[\w/.]+\.py:\d+", text):
+            continue
+        parts = text.replace("\\", "/").split("/")
+        assert "page_segmentation_tpu" not in parts, f"{path.name} names {text!r}"
+
+
+def test_port_opens_no_file_of_the_jax_package(monkeypatch):
+    """The .h5 exporter reads the port's own copy of the recorded Keras
+    manifests (equal to the JAX package's), never the JAX package's file."""
+    import builtins
+
+    from page_segmentation_tpu_torch.models import h5_export
+
+    jax_package = (REPO / "page_segmentation_tpu").resolve()
+    opened = []
+    real_open = builtins.open
+
+    def recording_open(file, *args, **kwargs):
+        opened.append(Path(os.fspath(file)).resolve())
+        return real_open(file, *args, **kwargs)
+
+    h5_export._manifests.cache_clear()  # read the file here, not from an earlier test's cache
+    monkeypatch.setattr(builtins, "open", recording_open)
+    manifests = h5_export._manifests()
+    for family in ("mobile_net", "image_res_net", "effb0"):
+        assert h5_export._load_manifest(family)["layers"]
+    monkeypatch.undo()
+    assert opened and all(jax_package not in p.parents for p in opened), opened
+    assert opened[0].parent == PORT / "models"
+    jax_copy = jax_package / "models" / "h5_export_manifests.json"
+    assert json.loads(jax_copy.read_text()) == manifests
 
 
 def test_importing_the_port_loads_no_jax():

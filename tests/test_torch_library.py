@@ -431,9 +431,8 @@ def test_architecture_registry_matches_jax():
         np.testing.assert_allclose(fn(x), jax_fn(x), rtol=1e-6)
         np.testing.assert_allclose(arch.device_preprocess()(torch.from_numpy(x)).numpy(),
                                    np.asarray(jax_arch.device_preprocess()(jnp.asarray(x))), rtol=1e-6)
-        if arch not in (registry.Architecture.FCN, registry.Architecture.FCN_SKIP):
-            with pytest.raises(NotImplementedError, match="item 10"):
-                arch.model(3)
+        with torch.device("meta"):
+            assert arch.model(3).n_classes == 3  # every name builds
     with pytest.raises(NotImplementedError, match="item 13"):
         registry.Architecture.FCN_SKIP.model(3, s2d_stem=True)
 
@@ -559,12 +558,9 @@ def test_unported_options_raise(tmp_path):
         PixelClassifier(3, int8=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         PixelClassifier(3, s2d_stem=True, device="cpu")
+    (tmp_path / "model.meta").write_bytes(b"")  # a TF1 checkpoint, beside no .h5
     with pytest.raises(NotImplementedError, match="item 10"):
-        PixelClassifier(3, architecture=registry.Architecture.UNET, device="cpu")
-    h5 = tmp_path / "model.h5"
-    h5.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        PixelClassifier(3, model_path=str(h5), device="cpu")
+        PixelClassifier(3, model_path=str(tmp_path / "model.h5"), device="cpu")
     port = PixelClassifier(3, device="cpu")
     for kw in (dict(n_devices=2), dict(band_rows=256)):
         with pytest.raises(NotImplementedError, match="item 12"):

@@ -186,8 +186,6 @@ def test_unported_options_raise(weights):
         torch_pipeline.ThroughputPredictor(*common, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="int8"):
         torch_pipeline.ThroughputPredictor(*common, int8=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="preprocess_mode"):
-        torch_pipeline.ThroughputPredictor(*common, preprocess_mode="caffe", device="cpu")
     with pytest.raises(ValueError, match="packed"):
         torch_pipeline.ThroughputPredictor(FCNSkip(6), None, np.zeros((6, 3), np.uint8),
                                            PAGE, SCALE, download="packed", device="cpu")

@@ -24,7 +24,7 @@ from page_segmentation_tpu_torch.core.colors import ColorMap
 from page_segmentation_tpu_torch.data import augment_device
 from page_segmentation_tpu_torch.data.dataset import Dataset, SingleData
 from page_segmentation_tpu_torch.inference.classifier import PixelClassifier
-from page_segmentation_tpu_torch.models.registry import Architecture, Optimizers
+from page_segmentation_tpu_torch.models.registry import Optimizers
 from page_segmentation_tpu_torch.train.callbacks import TrainProgressCallback
 from page_segmentation_tpu_torch.train.metrics import Monitor
 from page_segmentation_tpu_torch.train.trainer import (
@@ -252,11 +252,8 @@ def test_class_weighting_trains(tmp_path):
 @pytest.mark.parametrize("kwargs, item", [
     (dict(distributed=True), "item 12"),
     (dict(n_devices=2), "item 12"),
-    (dict(export_h5=True), "item 10"),
-    (dict(pretrained_encoder="enc.h5"), "item 10"),
     (dict(checkpoint_backend="orbax"), "item 11"),
     (dict(auto_resume=True), "item 11"),
-    (dict(architecture=Architecture.UNET), "item 10"),
 ])
 def test_unported_settings_name_their_item(tmp_path, kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
