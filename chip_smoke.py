@@ -22,6 +22,11 @@ the kernels' launch counts set to 0 just before it and read just after:
   the port: the CLI's ``predict --pipeline`` (host vote) beside
   ``RawCorpusPredictor(cc_vote="pallas")``, and ``predict --fast`` (device
   vote);
+* the ground-truth and segmentation tools: ``gen-masks`` over PageXML of A4
+  layouts (all 5 settings, masks held against the layout), and
+  ``page-segmentation --text_contours`` over the predicted PNGs and over
+  full-resolution A4 label PNGs, on the host and on the card, whose files
+  must be byte-equal;
 * the HTTP service: ``PredictionServer`` over ``BatchingService`` on
   localhost, its fused route under concurrent clients and its spline route
   (device vote);
@@ -91,6 +96,10 @@ TRAIN_FAMILIES = ("mobile_net", "unet")
 FAMILY_EPOCHS = 2
 FAMILY_LR = 1e-4           # Adam; UNet without BatchNorm diverges at 1e-3 from a random start
 FAMILY_STEADY_STEPS = 20
+SEG_XML_PAGES = 40         # gen-masks: PageXML of 40 A4 layouts, all 5 settings
+SEG_FULL_PAGES = 16        # page-segmentation over full-resolution A4 label PNGs
+SEG_BATCH = 8              # --seg_batch: pages per device morphology chain
+SEG_REPS = 5
 DEVICE = "cuda"
 
 # the cuDNN and TF32 flags, at PyTorch's defaults: the port's CLI sets none
@@ -1000,6 +1009,246 @@ def phase_corpus(pages, binaries, work: str):
             "stages_ms": {k: v * 1e3 for k, v in stages.items()}}
 
 
+def _layout_pagexml(i: int, h: int, w: int) -> bytes:
+    """PageXML of ``layout_regions(i)`` by the port's ``build_pagexml``:
+    text lines as paragraph TextRegions, the figure as an ImageRegion; each
+    TextRegion then gets a TextLine of its own outline with a Baseline along
+    its last row, so that the line settings draw too."""
+    import re
+
+    from page_segmentation_tpu_torch.pagexml.xml_gen import build_pagexml
+    from page_segmentation_tpu_torch.segmentation.xycut import RectSegment
+
+    regions = layout_regions(i, h, w)
+    rect = {cls: [RectSegment(r0, c0, r1 - 1, c1 - 1) for c, r0, r1, c0, c1 in regions if c == cls]
+            for cls in (1, 2)}
+    doc = build_pagexml(f"page{i:03d}.png", (h, w), rect[1], rect[2]).decode()
+    lines = iter(r for r in regions if r[0] == 1)
+
+    def add_line(m):
+        _, r0, r1, c0, c1 = next(lines)
+        return (f'{m.group(1)}\n      <TextLine id="l{m.group(2)}"><Coords points="{m.group(3)}"/>'
+                f'<Baseline points="{c0},{r1 - 1} {c1 - 1},{r1 - 1}"/></TextLine>\n    </TextRegion>')
+
+    doc = re.sub(r'(<TextRegion id="r(\d+)" type="paragraph">\n\s*<Coords points="([^"]*)"/>)'
+                 r'\n\s*</TextRegion>', add_line, doc)
+    return doc.encode()
+
+
+def _expected_mask(i: int, h: int, w: int, setting: str, line_width: int = 5) -> np.ndarray:
+    """The color mask ``gen-masks`` must draw for ``_layout_pagexml(i)``,
+    painted here with slices: filled rectangles include both end points, a
+    horizontal baseline of width 5 covers the two rows on each side."""
+    from page_segmentation_tpu_torch.core.colors import DEFAULT_IMAGE_MAP
+
+    red, green = DEFAULT_IMAGE_MAP.palette[1], DEFAULT_IMAGE_MAP.palette[2]
+    mask = np.full((h, w, 3), 255, np.uint8)
+    for cls, r0, r1, c0, c1 in layout_regions(i, h, w):
+        if cls == 2 and setting in ("all_types", "text_nontext"):
+            mask[r0:r1, c0:c1] = green
+        elif cls == 1 and setting == "baseline":
+            half = (line_width - 1) // 2
+            mask[r1 - 1 - half : r1 + half, c0:c1] = red
+        elif cls == 1:
+            mask[r0:r1, c0:c1] = red
+    return mask
+
+
+def _segment_stages(paths, work: str) -> dict:
+    """Milliseconds a page of each stage of ``page-segmentation
+    --text_contours`` at char height LINE_HEIGHT, run one after another
+    through ``PageSegmenter``'s own steps: decode, text mask, the native host
+    chain, the device chain's round trip (pack, upload, chain, download,
+    unpack) per batch of SEG_BATCH, contours, the XY cut of the image
+    label, and render + PNG + PageXML writes."""
+    import os
+
+    from page_segmentation_tpu_torch.core.colors import DEFAULT_IMAGE_MAP
+    from page_segmentation_tpu_torch.segmentation.batch import PageSegmenter
+    from page_segmentation_tpu_torch.segmentation.device_morph import morph_kernels
+    from page_segmentation_tpu_torch.segmentation.pc_segmentation import (
+        contours_from_region_mask,
+        text_region_mask,
+    )
+
+    out = os.path.join(work, "seg_stages")
+    seg = PageSegmenter(DEFAULT_IMAGE_MAP, 300, True, out + "_render", xml_output_dir=out + "_xml",
+                        backend="device", batch_size=SEG_BATCH, device=DEVICE)
+    ms = {}
+
+    def timed(name, fn, per=1):
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        ms[name] = ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3 / per
+        return value
+
+    loaded = [timed("decode", lambda: seg._load(p)) for p in paths]
+    masks = [timed("text mask", lambda: seg._text_mask(*page[1:])) for page in loaded]
+    regions = [timed("host chain", lambda: text_region_mask(m, LINE_HEIGHT)) for m in masks]
+    kernels = morph_kernels(LINE_HEIGHT)
+    for i in range(0, len(masks), SEG_BATCH):
+        batch = np.stack(masks[i : i + SEG_BATCH])
+        timed("device chain round trip", lambda: seg._device.run(batch, kernels))
+    contours = [timed("contours", lambda: contours_from_region_mask(r)) for r in regions]
+    for page, cont in zip(loaded, contours):
+        _, images = timed("xy cut (image)", lambda: seg._segments(*page[1:], LINE_HEIGHT))
+        shape = page[2].shape
+        timed("render + PNG + PageXML", lambda: seg._finish_page(page[0], shape, None, images, cont))
+    return {k: v / len(paths) for k, v in ms.items()}
+
+
+@backend_flags("segment")
+def phase_segment(work: str):
+    """The ground-truth and segmentation tools: ``gen-masks`` over PageXML of
+    SEG_XML_PAGES A4 layouts written by the port's ``save_pagexml`` (all 5
+    settings, masks held against the painted layout), and
+    ``page-segmentation --text_contours --xml_output_dir`` over the
+    predicted color PNGs of ``phase_corpus`` and over SEG_FULL_PAGES
+    full-resolution A4 label PNGs at char height 50, each with
+    ``--morph_backend host`` and ``--morph_backend device --device cuda``,
+    whose output files must be byte-equal.  Times the device chain per batch
+    of SEG_BATCH A4 pages (CUDA events) beside the native host chain per
+    page."""
+    import glob
+    import os
+
+    from page_segmentation_tpu_torch import native
+    from page_segmentation_tpu_torch.cli.main import main as cli
+    from page_segmentation_tpu_torch.core.colors import DEFAULT_IMAGE_MAP
+    from page_segmentation_tpu_torch.core.image_io import imread_labels, imread_rgb, imsave_indexed
+    from page_segmentation_tpu_torch.data.dataset import io_pool
+    from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
+    from page_segmentation_tpu_torch.pagexml.mask_gen import MaskSetting, get_xml_regions
+    from page_segmentation_tpu_torch.segmentation.device_morph import (
+        morph_kernels,
+        text_region_chain,
+    )
+
+    h, w = A4
+    result = {"pages_per_s": {}}
+    cuda_cc.launches = cuda_add_one.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+
+    # gen-masks
+    xml_dir = os.path.join(work, "seg_xml")
+    os.makedirs(xml_dir)
+
+    def write_xml(i):
+        with open(os.path.join(xml_dir, f"page{i:03d}.xml"), "wb") as f:
+            f.write(_layout_pagexml(i, h, w))
+
+    list(io_pool().map(write_xml, range(SEG_XML_PAGES)))
+    for setting in ("all_types", "text_nontext", "baseline", "textline", "text_only"):
+        out = os.path.join(work, f"seg_masks_{setting}")
+        t0 = time.perf_counter()
+        rc = cli(["gen-masks", "--input_dir", xml_dir, "--output_dir", out, "--setting", setting,
+                  "--threads", "8"])
+        seconds = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"gen-masks --setting {setting} returned {rc}")
+        result["pages_per_s"][f"gen_masks_{setting}"] = SEG_XML_PAGES / seconds
+
+        def check(i):
+            got = imread_rgb(os.path.join(out, f"page{i:03d}.mask.png"))
+            return bool((got == _expected_mask(i, h, w, setting)).all())
+
+        bad = [i for i, ok in enumerate(io_pool().map(check, range(SEG_XML_PAGES))) if not ok]
+        if bad:
+            raise AssertionError(f"gen-masks --setting {setting}: pages {bad} differ from the layout")
+        log(f"  gen-masks --setting {setting}: {SEG_XML_PAGES} A4 pages in {seconds:.3f} s = "
+            f"{SEG_XML_PAGES / seconds:.2f} pages/s (8 threads, PNG writes included); masks == layout")
+    page = get_xml_regions(os.path.join(xml_dir, "page000.xml"), MaskSetting())
+    if page.image_size != (h, w) or len(page.xml_regions) != len(layout_regions(0, h, w)):
+        raise AssertionError("the PageXML does not read back as written")
+
+    # page-segmentation: phase_corpus's predictions and full-resolution labels
+    label_dir = os.path.join(work, "seg_labels")
+    os.makedirs(label_dir)
+    list(io_pool().map(lambda i: imsave_indexed(os.path.join(label_dir, f"page{i:03d}.png"),
+                                                layout_labels(i, h, w), DEFAULT_IMAGE_MAP.palette),
+                       range(SEG_FULL_PAGES)))
+    runs = {"predicted": (sorted(glob.glob(os.path.join(work, "pipeline_out", "color", "*.png"))),
+                          round(LINE_HEIGHT * SCALE)),
+            "full_res": (sorted(glob.glob(os.path.join(label_dir, "*.png"))), LINE_HEIGHT)}
+    for name, (paths, char_height) in runs.items():
+        if not paths:
+            raise AssertionError(f"page-segmentation {name}: no input pages")
+        outs = {}
+        for backend in ("host", "device"):
+            out = os.path.join(work, f"seg_{name}_{backend}")
+            argv = ["page-segmentation", "--prediction", *paths, "--output_dir", out + "_render",
+                    "--xml_output_dir", out + "_xml", "--char_height", str(char_height),
+                    "--text_contours", "--seg_batch", str(SEG_BATCH), "--morph_backend", backend]
+            argv += ["--device", DEVICE] if backend == "device" else []
+            t0 = time.perf_counter()
+            rc = cli(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"page-segmentation {name} {backend} returned {rc}")
+            result["pages_per_s"][f"{name}_{backend}"] = len(paths) / seconds
+            log(f"  page-segmentation --text_contours {name} ({len(paths)} pages, char height "
+                f"{char_height}) --morph_backend {backend}: {seconds:.3f} s = "
+                f"{len(paths) / seconds:.2f} pages/s, PNG reads, renders and PageXML included")
+            outs[backend] = out
+        for sub in ("_render", "_xml"):
+            files = sorted(os.listdir(outs["host"] + sub))
+            if len(files) != len(paths) or files != sorted(os.listdir(outs["device"] + sub)):
+                raise AssertionError(f"page-segmentation {name}: files {sub} differ in number")
+            for f in files:
+                with open(os.path.join(outs["host"] + sub, f), "rb") as a, \
+                        open(os.path.join(outs["device"] + sub, f), "rb") as b:
+                    if a.read() != b.read():
+                        raise AssertionError(f"page-segmentation {name}: {sub[1:]} {f} differs "
+                                             "between the host and device backends")
+        log(f"  page-segmentation {name}: host and device backends wrote byte-equal renders and "
+            f"PageXML for {len(paths)} pages")
+    # the full-resolution regions are right: every text pixel of the layout
+    # lies in a rendered text region (on the (W, H) canvas the reference's
+    # text-contours render draws, clipped to it), and each page has regions
+    text = np.asarray(DEFAULT_IMAGE_MAP.palette[1])
+    rows, cols = min(h, w), min(w, h)
+    for i in range(SEG_FULL_PAGES):
+        labels, palette = imread_labels(os.path.join(work, "seg_full_res_host_render", f"page{i:03d}.png"))
+        rendered = (palette[labels] == text).all(-1)
+        truth = (layout_labels(i, h, w) == 1)[:rows, :cols]
+        if rendered.shape != (w, h) or not rendered[:rows, :cols][truth].all():
+            raise AssertionError(f"full-resolution page {i}: text regions miss text pixels")
+        regions = get_xml_regions(os.path.join(work, "seg_full_res_host_xml", f"page{i:03d}.xml"),
+                                  MaskSetting())
+        if not regions.xml_regions:
+            raise AssertionError(f"full-resolution page {i}: no regions in the PageXML")
+    result["launches"] = {"cc_label": cuda_cc.launches, "add_one": cuda_add_one.launches}
+    if cuda_cc.launches or cuda_add_one.launches:
+        raise AssertionError(f"a kernel launched on the segmentation path: {result['launches']}")
+    result["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+
+    # the chain alone: device batch of SEG_BATCH A4 masks vs the native host chain
+    kernels = morph_kernels(LINE_HEIGHT)
+    masks = np.stack([layout_labels(i, h, w) == 1 for i in range(SEG_BATCH)])
+    on_card = torch.from_numpy(masks).to(DEVICE)
+    result["device_chain_ms_per_batch"] = cuda_ms(lambda: text_region_chain(on_card, kernels),
+                                                  reps=SEG_REPS, warmup=1)
+    host = []
+    for i in range(SEG_REPS):
+        t0 = time.perf_counter()
+        native.bitmorph_chain(masks[i % SEG_BATCH], *kernels)
+        host.append((time.perf_counter() - t0) * 1e3)
+    result["host_chain_ms_per_page"] = float(np.median(host))
+    got = text_region_chain(on_card, kernels).cpu().numpy()
+    if not all((got[i] == (native.bitmorph_chain(masks[i], *kernels) != 0)).all() for i in range(SEG_BATCH)):
+        raise AssertionError("the device chain differs from the native host chain at A4")
+    result["stages_ms_per_page"] = _segment_stages(runs["full_res"][0], work)
+    log("  segment stages at A4 (ms a page, one after another on the full-resolution labels): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in result["stages_ms_per_page"].items()))
+    log(f"  text-contours chain at A4, kernels {kernels}: device {result['device_chain_ms_per_batch']:.3f} ms "
+        f"per batch of {SEG_BATCH} ({result['device_chain_ms_per_batch'] / SEG_BATCH:.3f} ms/page, CUDA "
+        f"events), native host chain {result['host_chain_ms_per_page']:.3f} ms/page; peak "
+        f"{result['peak_mib']:.1f} MiB of device memory")
+    return result
+
+
 # the served labels must equal a direct run of the same batch
 @backend_flags("serve", {"cudnn.deterministic": True})
 def phase_serve(pages, model: str):
@@ -1164,17 +1413,26 @@ def phase_serve(pages, model: str):
     return serve
 
 
-def layout_labels(i: int, h: int, w: int) -> np.ndarray:
-    """The class map of ``synthesize_pages``' page ``i``: its text lines
-    (each row of glyph blocks, across the text column) as text (1), the
-    figure block of every third page as image (2), the rest background."""
+def layout_regions(i: int, h: int, w: int):
+    """The regions of ``synthesize_pages``' page ``i`` as (class, row0, row1,
+    col0, col1), ends exclusive: its text lines (each row of glyph blocks,
+    across the text column) as text (1) and the figure block of every third
+    page as image (2)."""
     line_height = 50
-    labels = np.zeros((h, w), np.uint8)
     col_starts = np.arange(w // 10, w - w // 10 - 25, 35)
-    for row in np.arange(h // 8, h - h // 8 - line_height, int(line_height * 1.6)):
-        labels[row : row + line_height, col_starts[0] : col_starts[-1] + 25] = 1
+    regions = [(1, row, row + line_height, col_starts[0], col_starts[-1] + 25)
+               for row in np.arange(h // 8, h - h // 8 - line_height, int(line_height * 1.6))]
     if i % 3 == 0:
-        labels[int(h * 0.7) : int(h * 0.85), int(w * 0.2) : int(w * 0.8)] = 2
+        regions.append((2, int(h * 0.7), int(h * 0.85), int(w * 0.2), int(w * 0.8)))
+    return [tuple(int(v) for v in r) for r in regions]
+
+
+def layout_labels(i: int, h: int, w: int) -> np.ndarray:
+    """The class map of ``synthesize_pages``' page ``i``: ``layout_regions``
+    painted on background (0)."""
+    labels = np.zeros((h, w), np.uint8)
+    for cls, r0, r1, c0, c1 in layout_regions(i, h, w):
+        labels[r0:r1, c0:c1] = cls
     return labels
 
 
@@ -1827,6 +2085,7 @@ def main(argv=None) -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
     try:
         corpus = phase_corpus(pages, binaries, work)
+        segment = phase_segment(work)
         serve = phase_serve(pages, corpus["model"])
         train = phase_train(pages, binaries, work)
         families = phase_families(pages, binaries, work)
@@ -1843,6 +2102,7 @@ def main(argv=None) -> int:
         "serve_client_p50_ms": serve["client_p50_ms"], "serve_client_p99_ms": serve["client_p99_ms"],
         "serve_stats": serve["stats"], "serve_spline_pages_per_s": serve["spline_pages_per_s"],
         "corpus_stages_ms": corpus["stages_ms"], "serve_stages_ms": serve["stages_ms"]}))
+    log("segmentation: " + json.dumps({k: v for k, v in segment.items() if k != "launches"}))
     log("training: " + json.dumps({k: v for k, v in train.items() if k != "launches"}))
     log("families: " + json.dumps(families["families"]))
     log("training families: " + json.dumps(train_families["families"]))
@@ -1875,7 +2135,8 @@ def main(argv=None) -> int:
                              "train": train["launches"]["cc_label"],
                              "families_throughput": family_launches,
                              "families_library": families["library_launches"],
-                             "families_train": train_families["launches"]["cc_label"]},
+                             "families_train": train_families["launches"]["cc_label"],
+                             "segment": segment["launches"]["cc_label"]},
         "tiled": kernel["tiled"],
     }, {
         "name": "add_one",
@@ -1888,7 +2149,8 @@ def main(argv=None) -> int:
                              "predict_pipeline_cli": 0, "corpus_pallas": 0, "predict_fast_cli": 0,
                              "serve_fused": 0, "serve_spline": 0,
                              "train": train["launches"]["add_one"], "families_throughput": 0,
-                             "families_library": 0, "families_train": train_families["launches"]["add_one"]},
+                             "families_library": 0, "families_train": train_families["launches"]["add_one"],
+                             "segment": segment["launches"]["add_one"]},
         "max_abs_err": add_one["max_abs_err"],
         "ms": add_one["ms"],
         "plain_ms": add_one["plain_ms"],

@@ -14,7 +14,8 @@ streamer (``RawCorpusPredictor``), the batching HTTP service
 (``BatchingService``, ``PredictionServer``) and the command line
 (``python -m page_segmentation_tpu_torch.cli``: ``predict``, ``serve``,
 ``evaluate``, ``compute-image-normalizations``, ``create-dataset-file``,
-``train``).  The training path (dataset JSON -> ``DatasetLoader`` ->
+``train``, and the ground-truth and segmentation tools ``gen-masks`` and
+``page-segmentation``).  The training path (dataset JSON -> ``DatasetLoader`` ->
 ``Trainer`` -> checkpoints with the optimizer state, and the ``Network``
 facade) trains FCNSkip with cuDNN's convolutions through autograd.
 ``tools/repro_download.py`` checks that downloads come back whole under
@@ -62,6 +63,16 @@ _LAZY = {
     "Loss": ("page_segmentation_tpu_torch.train.metrics", "Loss"),
     "Monitor": ("page_segmentation_tpu_torch.train.metrics", "Monitor"),
     "Optimizers": ("page_segmentation_tpu_torch.models.registry", "Optimizers"),
+    "find_postprocessor": ("page_segmentation_tpu_torch.inference.postprocess", "find_postprocessor"),
+    "Masks": ("page_segmentation_tpu_torch.inference.output", "Masks"),
+    "generate_output_masks": ("page_segmentation_tpu_torch.inference.output", "generate_output_masks"),
+    "MaskGenerator": ("page_segmentation_tpu_torch.pagexml.mask_gen", "MaskGenerator"),
+    "MaskSetting": ("page_segmentation_tpu_torch.pagexml.mask_gen", "MaskSetting"),
+    "MaskType": ("page_segmentation_tpu_torch.pagexml.mask_gen", "MaskType"),
+    "find_segments": ("page_segmentation_tpu_torch.segmentation.pc_segmentation", "find_segments"),
+    "get_text_contours": ("page_segmentation_tpu_torch.segmentation.pc_segmentation", "get_text_contours"),
+    "build_pagexml": ("page_segmentation_tpu_torch.pagexml.xml_gen", "build_pagexml"),
+    "save_pagexml": ("page_segmentation_tpu_torch.pagexml.xml_gen", "save_pagexml"),
 }
 
 

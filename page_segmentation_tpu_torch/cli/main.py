@@ -12,9 +12,12 @@ defaults and error behaviour.  Ported subcommands:
     train                          train from dataset JSON files
     create-dataset-file            a dataset directory -> dataset JSON splits
 
+    gen-masks                      PageXML ground truth -> color mask PNGs
+    page-segmentation              predictions -> region renders (+ PageXML)
+
 ``predict``, ``serve`` and ``train`` run on the card unless ``--device cpu``
-is given.  ``gen-masks``, ``page-segmentation`` and ``export``, and the
-options of ``train`` that are not ported (``--distributed``, ``--n_devices``
+is given; ``page-segmentation`` uses the card only with ``--morph_backend
+device``.  ``export``, and the options of ``train`` that are not ported (``--distributed``, ``--n_devices``
 > 1, ``--checkpoint_backend orbax``, ``--auto_resume``), keep their flags
 and exit with an error naming the ROADMAP item that ports them.  A bare invocation is ``predict``; a user
 error prints one line and returns 2.
@@ -405,6 +408,63 @@ def cmd_evaluate(args) -> int:
     return 0
 
 
+# ----------------------------------------------------------------- gen-masks
+def cmd_gen_masks(args) -> int:
+    from ..core.colors import ColorMap
+    from ..pagexml.mask_gen import MaskGenerator, MaskSetting, MaskType, PageXMLTypes, PCGTSVersion
+
+    setting = MaskSetting(
+        mask_extension=args.mask_extension,
+        mask_type=MaskType(args.setting),
+        pcgts_version=PCGTSVersion(args.pcgts_version) if args.pcgts_version else None,
+        line_width=args.line_width,
+        capital_is_text=args.capital_is_text,
+        use_xml_filename=args.use_xml_filename,
+    )
+    generator = MaskGenerator(setting)
+    xml_files = _expand(args.input) or [
+        os.path.join(args.input_dir, f) for f in sorted(os.listdir(args.input_dir))
+        if f.endswith(".xml")
+    ]
+    if args.threads and args.threads > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=args.threads) as pool:
+            list(pool.map(lambda x: generator.save(x, args.output_dir), xml_files))
+    else:
+        for xml_file in xml_files:
+            generator.save(xml_file, args.output_dir)
+    map_dir = args.image_map_dir or args.output_dir
+    os.makedirs(map_dir, exist_ok=True)
+    map_path = os.path.join(map_dir, "image_map.json")
+    ColorMap(PageXMLTypes.image_map(setting.mask_type)).save(map_path)
+    print(f"Generated {len(xml_files)} masks + {map_path}")
+    return 0
+
+
+# --------------------------------------------------------- page-segmentation
+def cmd_page_segmentation(args) -> int:
+    """Region segmentation through ``segmentation.batch.PageSegmenter``:
+    decode-ahead, the indexed-PNG fast path, and with ``--morph_backend
+    device`` the batched morphology chain on ``--device``."""
+    from ..segmentation.batch import PageSegmenter
+
+    segmenter = PageSegmenter(
+        _load_color_map(args.color_map),
+        args.resize_height,
+        args.text_contours,
+        args.output_dir,
+        extension=args.extension,
+        xml_output_dir=args.xml_output_dir,
+        backend=args.morph_backend,
+        batch_size=args.seg_batch,
+        device=args.device,
+    )
+    for _ in segmenter.run((p, args.char_height) for p in _expand(args.prediction)):
+        pass
+    return 0
+
+
 # -------------------------------------------------------------------- parser
 class _DashAliasParser(argparse.ArgumentParser):
     """Accepts every dash/underscore spelling of a flag: option tokens are
@@ -548,8 +608,8 @@ def build_parser() -> argparse.ArgumentParser:
     n.set_defaults(func=cmd_compute_normalizations)
 
     # gen-masks
-    g = sub.add_parser("gen-masks", help="PageXML -> color mask PNGs (not ported yet)")
-    g.add_argument("--input", nargs="*", default=None)
+    g = sub.add_parser("gen-masks", help="PageXML -> color mask PNGs")
+    g.add_argument("--input", nargs="*", default=None, help="xml files/globs")
     g.add_argument("--input_dir", default=None)
     g.add_argument("--output_dir", required=True)
     g.add_argument("--setting", default="all_types",
@@ -559,23 +619,31 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--line_width", type=int, default=5)
     g.add_argument("--capital_is_text", action="store_true")
     g.add_argument("--use_xml_filename", action="store_true")
-    g.add_argument("--threads", type=int, default=1)
-    g.add_argument("--image_map_dir", default=None)
-    g.set_defaults(func=_not_ported("14", "PageXML masks"))
+    g.add_argument("--threads", type=int, default=1,
+                   help="parallel mask rasterization workers")
+    g.add_argument("--image_map_dir", default=None,
+                   help="write image_map.json here instead of output_dir")
+    g.set_defaults(func=cmd_gen_masks)
 
     # page-segmentation
-    s = sub.add_parser("page-segmentation", help="region segmentation (not ported yet)")
+    s = sub.add_parser("page-segmentation", help="XY-cut/morphological region segmentation")
     s.add_argument("--prediction", nargs="+", required=True)
     s.add_argument("--output_dir", required=True)
     s.add_argument("--char_height", type=int, required=True)
     s.add_argument("--resize_height", type=int, default=300)
     s.add_argument("--color_map", default=None)
-    s.add_argument("--text_contours", action="store_true")
-    s.add_argument("--xml_output_dir", default=None)
+    s.add_argument("--text_contours", action="store_true", help="morphological text polygons")
+    s.add_argument("--xml_output_dir", default=None,
+                   help="also write the regions as PageXML documents here")
     s.add_argument("--extension", default="png")
-    s.add_argument("--morph_backend", default="auto", choices=["auto", "device", "host"])
-    s.add_argument("--seg_batch", type=int, default=8)
-    s.set_defaults(func=_not_ported("13", "segmentation"))
+    s.add_argument("--morph_backend", default="auto", choices=["auto", "device", "host"],
+                   help="text-contours morphology: host (= auto) runs the native bit-packed "
+                        "chain page by page; device runs one batched torch chain on --device")
+    s.add_argument("--seg_batch", type=int, default=8,
+                   help="pages per pipeline batch (decode prefetch, one device chain)")
+    s.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where --morph_backend device runs")
+    s.set_defaults(func=cmd_page_segmentation)
 
     # serve
     v = sub.add_parser("serve", help="HTTP prediction service with dynamic batching")

@@ -1,5 +1,7 @@
-"""RGB <-> label codec: the part of ``ColorMap`` the predict and evaluate
-paths need, including the JSON "image map" reader (``--color_map``).
+"""RGB <-> label codec: the part of ``ColorMap`` the predict, evaluate,
+segmentation and mask-generation paths need, including the JSON "image
+map" reader and writer (``--color_map``, ``image_map.json``), and
+``exact_color_mask``.
 
 The on-disk JSON form maps a stringified RGB tuple to ``[index, label]``::
 
@@ -37,11 +39,13 @@ class ColorMap:
             for color, (index, label) in mapping.items()
         }
         self._index_to_color: Dict[int, RGBColor] = {}
-        for color, (index, _label) in sorted(
+        self._label_to_color: Dict[str, RGBColor] = {}
+        for color, (index, label) in sorted(
             self._color_to_entry.items(), key=lambda kv: kv[1][0]
         ):
-            # first color registered for an index wins (stable for duplicates)
+            # first color registered for an index or label wins (stable for duplicates)
             self._index_to_color.setdefault(index, color)
+            self._label_to_color.setdefault(label, color)
 
     def __len__(self) -> int:
         return len(self._color_to_entry)
@@ -51,6 +55,16 @@ class ColorMap:
         with open(path, "r") as f:
             raw = json.load(f)
         return cls({k: (v[0], v[1]) for k, v in raw.items()})
+
+    def save(self, path) -> None:
+        with open(path, "w") as f:
+            json.dump({str(c): list(e) for c, e in self._color_to_entry.items()}, f, indent=2)
+
+    def color_for_label(self, label: str) -> RGBColor:
+        return self._label_to_color[label]
+
+    def index_for_label(self, label: str) -> int:
+        return self._color_to_entry[self._label_to_color[label]][0]
 
     @property
     def n_classes(self) -> int:
@@ -90,6 +104,27 @@ class ColorMap:
         from .image_io import imread_rgb
 
         return self.to_labels(imread_rgb(path))
+
+    def filter_label(self, image: np.ndarray, label: str) -> np.ndarray:
+        """0/1 uint8 mask of the pixels of ``label``: its color in an RGB
+        image, its index in a (H, W) label image."""
+        image = np.asarray(image)
+        if image.ndim == 2:
+            return (image == self.index_for_label(label)).astype(np.uint8)
+        return exact_color_mask(image, self.color_for_label(label)) >> 7
+
+
+def exact_color_mask(image: np.ndarray, color: RGBColor) -> np.ndarray:
+    """0/255 uint8 mask of the pixels of an (H, W, 3+) image that equal
+    ``color`` exactly."""
+    image = np.asarray(image)[..., :3]
+    if image.dtype == np.uint8:
+        # one compare of packed 24-bit keys instead of three channel compares
+        key = np.uint32(color[0] << 16 | color[1] << 8 | color[2])
+        packed = (image[..., 0].astype(np.uint32) << 16 | image[..., 1].astype(np.uint32) << 8
+                  | image[..., 2])
+        return (packed == key).view(np.uint8) * np.uint8(255)
+    return (image == np.asarray(color, image.dtype)).all(axis=-1).astype(np.uint8) * np.uint8(255)
 
 
 DEFAULT_IMAGE_MAP = ColorMap(

@@ -3,8 +3,10 @@
 Counterpart of the part of ``page_segmentation_tpu/core/image_io.py`` that
 the paths use: ``imread``, ``imread_rgb``, ``imread_bin``, ``encode_png``,
 ``imsave``, ``imsave_indexed``, the 1-bit pair ``imsave_bilevel`` /
-``imread_bilevel_packed`` of the raw corpus's packed-binary mode, and
-``random_indices`` and ``glob_all`` of the dataset tools.  The
+``imread_bilevel_packed`` of the raw corpus's packed-binary mode, the
+palette-index readers ``decode_labels_bytes`` / ``imread_labels`` of the
+segmentation path, and ``random_indices``, ``glob_all``, ``split_filename``
+and ``chunks`` of the dataset and segmentation tools.  The
 writers need neither PIL nor cv2: PNGs are written here with filter-0 rows
 through ``zlib`` (1-bit gray, 8-bit gray, 8-bit RGB, and indexed at the
 smallest legal bit depth), and decode to the same pixels as the JAX
@@ -15,6 +17,7 @@ way.
 """
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 from random import shuffle
@@ -177,6 +180,90 @@ def image_shape(path) -> Tuple[int, int]:
         return im.height, im.width
 
 
+def decode_labels_bytes(data: bytes) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """(labels (H, W) uint8, palette (n, 3) uint8) of in-memory palette-mode
+    PNG bytes; None for anything else (non-PNG, other color types,
+    malformed input), so that the caller decodes the same bytes with
+    :func:`decode_image_bytes`.  The pixels are PIL's: ``palette[labels]``
+    is what PIL's ``convert('RGB')`` gives."""
+    if len(data) < 8 or data[:8] != _PNG_MAGIC:
+        return None
+    fast = _decode_png_indexed_fast(data)
+    if fast is not None:
+        return fast
+    import io
+
+    try:
+        from PIL import Image
+
+        with Image.open(io.BytesIO(data)) as im:
+            if im.mode != "P":
+                return None
+            labels = np.asarray(im)
+            flat = im.getpalette()
+    except Exception:  # malformed: the general decoder reports it
+        return None
+    if flat is None or len(flat) % 3:
+        return None
+    return labels, np.asarray(flat, np.uint8).reshape(-1, 3)
+
+
+def _decode_png_indexed_fast(data) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """(labels, palette) of a non-interlaced palette PNG at depth 1/2/4/8,
+    straight from its zlib stream: inflate, the native unfilter for filtered
+    rows, the native sub-byte unpack.  None for any other PNG and for
+    malformed input."""
+    from .. import native
+
+    if isinstance(data, np.ndarray):
+        data = data.tobytes()
+    if len(data) < 8 or data[:8] != _PNG_MAGIC:
+        return None
+    try:
+        pos, w, h, depth, plte, idat = 8, None, None, None, None, []
+        while pos + 8 <= len(data):
+            (length,) = struct.unpack(">I", data[pos : pos + 4])
+            tag, payload = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + length]
+            pos += 12 + length
+            if tag == b"IHDR":
+                w, h, depth, color_type, comp, filt, interlace = struct.unpack(">IIBBBBB", payload)
+                if (color_type, comp, filt, interlace) != (3, 0, 0, 0) or depth not in (1, 2, 4, 8):
+                    return None
+            elif tag == b"PLTE":
+                plte = payload
+            elif tag == b"IDAT":
+                idat.append(payload)
+            elif tag == b"IEND":
+                break
+        if w is None or plte is None or not idat or len(plte) % 3 or not w or not h:
+            return None
+        stride = (w * depth + 7) // 8
+        raw = zlib.decompress(b"".join(idat))
+        if len(raw) != h * (stride + 1):
+            return None
+        rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
+        palette = np.frombuffer(plte, np.uint8).reshape(-1, 3)
+        if rows[:, 0].any():
+            packed = native.png_unfilter(rows, bpp=1)
+            if packed is None:
+                return None
+        else:
+            packed = np.ascontiguousarray(rows[:, 1:])
+        if depth == 8:
+            return packed, palette
+        return native.unpack_indices(packed, w, depth), palette
+    except (struct.error, zlib.error, ValueError):
+        return None
+
+
+def imread_labels(path) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """(labels, palette) of a palette-mode PNG file; None for any other
+    file, which callers read through :func:`imread_rgb` (whose pixels are
+    ``palette[labels]``)."""
+    with open(str(path), "rb") as f:
+        return decode_labels_bytes(f.read())
+
+
 def imread_bin(path, binarize: bool = True, threshold: int = 128) -> np.ndarray:
     """Read a binarized image as 0/255 uint8 (white background, black ink)."""
     gray = imread(path, as_gray=True)
@@ -286,3 +373,17 @@ def glob_all(patterns: Iterable[str]) -> List[str]:
         matched = sorted(glob.glob(pattern))
         out.extend(matched if matched else [pattern])
     return out
+
+
+def split_filename(path) -> Tuple[str, str, str]:
+    """(directory, basename without its extension, extension) of a path."""
+    directory, name = os.path.split(str(path))
+    base, ext = os.path.splitext(name)
+    return directory, base, ext.lstrip(".")
+
+
+def chunks(items: Sequence, n: int) -> Iterable[Sequence]:
+    """Successive slices of ``items`` of length ``n`` (the last may be
+    shorter)."""
+    for i in range(0, len(items), n):
+        yield items[i : i + n]

@@ -106,13 +106,18 @@ class PixelClassifier:
     def load(self, path: str) -> None:
         """A checkpoint directory (``params.msgpack`` + ``meta.json``;
         ``meta["architecture"]`` rebuilds the module) or a Keras ``.h5``
-        (its ``model_config`` names the architecture when it can)."""
+        (its ``model_config`` names the architecture when it can), or the
+        path of a missing ``.h5`` beside which a TF1 ``.meta`` checkpoint
+        lies (read by ``models/tf1_import.py``, which needs tensorflow)."""
         path = str(path)
         if path.endswith(".h5"):
             if not os.path.exists(path):
                 if os.path.exists(path[:-3] + ".meta"):
-                    raise NotImplementedError(
-                        "TF1 .meta checkpoints are not ported yet: ROADMAP queue 1 item 10")
+                    from ..models.tf1_import import load_tf1_checkpoint
+
+                    self.variables = {"params": load_tf1_checkpoint(
+                        path[:-3] + ".meta", self.architecture, self.n_classes)}
+                    return
                 raise FileNotFoundError(f"No checkpoint at {path}")
             from ..models.h5_import import load_keras_variables
 

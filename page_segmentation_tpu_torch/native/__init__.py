@@ -1,5 +1,5 @@
-"""ctypes bindings for the host C functions of the predict path
-(``ps_native.cpp``).
+"""ctypes bindings for the host C functions of the predict, segmentation
+and PageXML paths (``ps_native.cpp``).
 
 The library is built with g++ at first use into the package's ``_build/``
 directory (see ``_kernels.py``); a failed build raises.  Every wrapper
@@ -8,6 +8,7 @@ validates shapes, dtypes and contiguity before it passes a pointer.
 from __future__ import annotations
 
 import ctypes
+from typing import List, Optional
 
 import numpy as np
 
@@ -17,7 +18,8 @@ from .._kernels import LibrarySpec, _gxx, load_library
 # that made it (_build/ is never copied between machines)
 NATIVE_SPEC = LibrarySpec(
     "ps_native", _gxx,
-    ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-shared"),
+    # -ffp-contract=off: the rasterizer's float crossings must round as PIL's
+    ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-shared", "-ffp-contract=off"),
     ("native/ps_native.cpp",),
 )
 
@@ -34,6 +36,14 @@ _SIGNATURES = {
     "ps_finish": (None, [_u8p, _u8p, _u8p] + [_int] * 6 + [_u8p] * 3),
     "ps_finish_packed": (None, [_u8p, _u8p, _u8p] + [_int] * 6 + [_u8p] * 3),
     "ps_vote_finish_packed": (None, [_u8p, _u8p, _u8p] + [_int] * 7 + [_u8p] * 3),
+    "ps_contours": (_int, [_u8p, _int, _int, _i32p, _int, _i32p, _int]),
+    "ps_bitmorph": (_int, [_u8p, _int, _int, _int, _int, _u8p]),
+    "ps_bitmorph_chain": (_int, [_u8p, _int, _int, _int, _int, _int, _u8p]),
+    "ps_png_unfilter": (_int, [_u8p, _int, _int, _int, _u8p]),
+    "ps_pack_indices": (_int, [_u8p, _int, _int, _int, _u8p]),
+    "ps_unpack_indices": (_int, [_u8p, _int, _int, _int, _int, _u8p]),
+    "ps_fill_polygon": (_int, [_u8p, _int, _int, _int, _int, _i32p, _u8p]),
+    "ps_draw_lines": (_int, [_u8p, _int, _int, _int, _int, _i32p, _u8p, _int]),
 }
 
 
@@ -181,3 +191,127 @@ def vote_finish_packed(packed: np.ndarray, ink: np.ndarray, palette: np.ndarray,
                                     color, overlay, inverted)
     return color, overlay, inverted
 
+
+
+def _mask_u8(mask: np.ndarray) -> np.ndarray:
+    m = np.ascontiguousarray(np.asarray(mask), np.uint8)
+    if m.ndim != 2 or not m.size:
+        raise ValueError(f"mask must be a non-empty (H, W) array, got {m.shape}")
+    return m
+
+
+def bitmorph(mask: np.ndarray, k: int, erode: bool = False) -> np.ndarray:
+    """One k x k dilate (or erode) of a binary (H, W) mask through the
+    bit-packed sliding-window kernel, with cv2's borders; uint8 0/255."""
+    m = _mask_u8(mask)
+    if k < 1:
+        raise ValueError(f"kernel size must be >= 1, got {k}")
+    h, w = m.shape
+    out = np.empty((h, w), np.uint8)
+    get_lib().ps_bitmorph(m, h, w, int(k), int(bool(erode)), out)
+    return out
+
+
+def bitmorph_chain(mask: np.ndarray, k: int, k3: int, k11: int) -> np.ndarray:
+    """The text-contours morphology chain close(k), open(k3), dilate(k11),
+    close(k11) of a binary (H, W) mask; uint8 0/255."""
+    m = _mask_u8(mask)
+    if min(k, k3, k11) < 1:
+        raise ValueError(f"kernel sizes must be >= 1, got {(k, k3, k11)}")
+    h, w = m.shape
+    out = np.empty((h, w), np.uint8)
+    get_lib().ps_bitmorph_chain(m, h, w, int(k), int(k3), int(k11), out)
+    return out
+
+
+def png_unfilter(rows: np.ndarray, bpp: int = 1) -> Optional[np.ndarray]:
+    """Reconstruct PNG-filtered rows (none/sub/up/average/paeth): ``rows``
+    is the inflated stream as (h, stride + 1), a filter byte before each
+    row; returns the (h, stride) bytes, or None for an invalid filter byte
+    (a general decoder then reports the file)."""
+    r = np.ascontiguousarray(np.asarray(rows), np.uint8)
+    if r.ndim != 2 or r.shape[1] < 2 or not r.shape[0]:
+        raise ValueError(f"rows must be (h, stride + 1) with stride >= 1, got {r.shape}")
+    h, stride_p1 = r.shape
+    out = np.empty((h, stride_p1 - 1), np.uint8)
+    if get_lib().ps_png_unfilter(r, h, stride_p1 - 1, int(bpp), out) != 0:
+        return None
+    return out
+
+
+def _check_depth(depth: int) -> int:
+    if depth not in (1, 2, 4):
+        raise ValueError(f"depth must be 1, 2 or 4, got {depth}")
+    return 8 // depth
+
+
+def pack_indices(labels: np.ndarray, depth: int) -> np.ndarray:
+    """MSB-first sub-byte packing of a (H, W) uint8 label map into
+    (H, ceil(W * depth / 8)) PNG index rows."""
+    m = _mask_u8(labels)
+    k = _check_depth(depth)
+    if m.max() >= 1 << depth:
+        raise ValueError(f"labels exceed depth {depth}")
+    h, w = m.shape
+    out = np.empty((h, (w + k - 1) // k), np.uint8)
+    get_lib().ps_pack_indices(m, h, w, int(depth), out)
+    return out
+
+
+def unpack_indices(packed: np.ndarray, w: int, depth: int) -> np.ndarray:
+    """Inverse of :func:`pack_indices`: (H, stride) rows -> (H, w) labels."""
+    m = _mask_u8(packed)
+    k = _check_depth(depth)
+    h, stride = m.shape
+    if not 0 < w <= stride * k:
+        raise ValueError(f"w {w} does not fit rows of {stride} bytes at depth {depth}")
+    out = np.empty((h, w), np.uint8)
+    get_lib().ps_unpack_indices(m, h, stride, int(w), int(depth), out)
+    return out
+
+
+def contours(image: np.ndarray) -> List[np.ndarray]:
+    """External contours (8-connectivity) of the nonzero pixels of one
+    (H, W) image, as (N, 2) int32 (x, y) arrays in raster discovery order."""
+    img = np.ascontiguousarray((np.asarray(image) != 0).astype(np.uint8))
+    if img.ndim != 2:
+        raise ValueError(f"image must be (H, W), got {img.shape}")
+    h, w = img.shape
+    max_points = h * w + 16
+    max_contours = h * w // 4 + 16
+    points = np.empty((max_points, 2), np.int32)
+    lens = np.empty(max_contours, np.int32)
+    n = get_lib().ps_contours(img, h, w, points, max_points, lens, max_contours)
+    if n < 0:
+        raise RuntimeError("ps_contours: output buffers overflowed")
+    offsets = np.concatenate(([0], np.cumsum(lens[:n])))
+    return [points[offsets[i] : offsets[i + 1]].copy() for i in range(n)]
+
+
+def _canvas_args(canvas: np.ndarray, points, color):
+    if canvas.dtype != np.uint8 or not canvas.flags.c_contiguous or canvas.ndim not in (2, 3):
+        raise ValueError("canvas must be a C-contiguous uint8 (H, W) or (H, W, C) array")
+    channels = 1 if canvas.ndim == 2 else canvas.shape[2]
+    color = np.ascontiguousarray(np.broadcast_to(np.asarray(color, np.uint8).ravel(), (channels,)))
+    xy = np.ascontiguousarray(np.asarray(points, np.int64).reshape(-1, 2))
+    if xy.size and (np.abs(xy) > 1 << 28).any():
+        raise ValueError("point coordinates out of range")
+    return channels, xy.astype(np.int32), color
+
+
+def fill_polygon(canvas: np.ndarray, points, color) -> None:
+    """PIL's ``ImageDraw.polygon(points, fill=color)`` on ``canvas`` in
+    place: (N, 2) integer (x, y) points, N >= 1."""
+    channels, xy, color = _canvas_args(canvas, points, color)
+    if not len(xy):
+        raise ValueError("a polygon needs at least one point")
+    h, w = canvas.shape[:2]
+    get_lib().ps_fill_polygon(canvas.reshape(h, -1), h, w, channels, len(xy), xy, color)
+
+
+def draw_lines(canvas: np.ndarray, points, color, width: int) -> None:
+    """PIL's ``ImageDraw.line(points, fill=color, width=width)`` (no
+    joints) on ``canvas`` in place."""
+    channels, xy, color = _canvas_args(canvas, points, color)
+    h, w = canvas.shape[:2]
+    get_lib().ps_draw_lines(canvas.reshape(h, -1), h, w, channels, len(xy), xy, color, int(width))

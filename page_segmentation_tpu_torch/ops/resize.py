@@ -47,6 +47,22 @@ def rescale_nearest(image: np.ndarray, scale: float) -> np.ndarray:
     return resize_nearest(image, output_shape_for_scale(image.shape[:2], scale))
 
 
+def resize_nearest_cv(image: np.ndarray, out_shape: Sequence[int]) -> np.ndarray:
+    """Nearest resize with OpenCV's INTER_NEAREST pixel selection, per axis
+    ``src = min(floor(dst * (1.0 / (out / in))), in - 1)`` with ``out / in``
+    and its reciprocal each rounded to float64, as cv2 computes them (so a
+    mathematically integral ``dst * in / out`` can select the previous
+    source pixel)."""
+    image = np.asarray(image)
+    out_shape = tuple(int(s) for s in out_shape)
+    idx = []
+    for out_dim, in_dim in zip(out_shape, image.shape):
+        inv = np.float64(1.0) / np.float64(out_dim / in_dim)
+        coords = np.floor(np.arange(out_dim, dtype=np.float64) * inv)
+        idx.append(np.minimum(coords.astype(np.int64), in_dim - 1))
+    return image[np.ix_(idx[0], idx[1])]
+
+
 def resize_cubic(image: np.ndarray, out_shape: Sequence[int], anti_aliasing: bool = False,
                  preserve_range: bool = True) -> np.ndarray:
     """Order-3 spline resize with skimage.transform.resize semantics."""

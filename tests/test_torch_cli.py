@@ -110,9 +110,6 @@ def test_user_errors_return_2_with_one_line(checkpoint, tmp_path, capsys):
 @pytest.mark.parametrize("argv, item", [
     (["train", "--output", "o", "--checkpoint_backend", "orbax"], "item 11"),
     (["train", "--output", "o", "--auto_resume"], "item 11"),
-    (["gen-masks", "--output_dir", "o"], "item 14"),
-    (["page-segmentation", "--prediction", "p.png", "--output_dir", "o", "--char_height", "9"],
-     "item 13"),
     (["export", "--load", "m", "--output", "m.pt2"], "item 13"),
     (["predict", "--int8"], "item 13"),
     (["predict", "--n_devices", "2"], "item 12"),

@@ -204,3 +204,32 @@ def test_classifier_device_vote_on_the_card_matches_cpu(cuda_device, monkeypatch
     pred = rng.randint(0, 3, (48, 40)).astype(np.int32)
     want = cc_vote_on_device(pred, binaries[0], 3, device="cpu")
     assert torch.equal(cc_vote_on_device(pred, binaries[0], 3, device=cuda_device).cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [248, 251])
+def test_device_morphology_on_the_card_equals_the_host_chain(cuda_device, width):
+    from page_segmentation_tpu_torch import native
+    from page_segmentation_tpu_torch.segmentation.device_morph import (
+        TextRegionMorphDevice,
+        morph_kernels,
+    )
+
+    rng = np.random.default_rng(width)
+    masks = rng.random((5, 300, width)) < 0.05
+    masks[:, 40:60, 10:] |= rng.random((5, 20, width - 10)) < 0.6
+    heights = [9, 14, 50, 14, 10]
+    kernels = [morph_kernels(h) for h in heights]
+    got = TextRegionMorphDevice(cuda_device).run(masks, kernels)
+    for page, mask, k in zip(got, masks, kernels):
+        assert (page == native.bitmorph_chain(mask, *k)).all()
+
+
+@pytest.mark.cuda
+def test_torch_dilate_erode_on_the_card_equal_the_cpu(cuda_device):
+    from page_segmentation_tpu_torch.ops.morphology import dilate_torch, erode_torch
+
+    x = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (61, 47, 3), dtype=np.uint8))
+    for k in ((3, 3), (4, 6), (9, 2)):
+        for fn in (dilate_torch, erode_torch):
+            assert torch.equal(fn(x.to(cuda_device), k).cpu(), fn(x, k))

@@ -10,6 +10,7 @@ frameworks sum the convolutions in another order); bf16 class maps agree on
 labels is byte-equal wherever the labels agree.  The device resample agrees
 to 0.01 gray levels (two cubic resamplers)."""
 import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -553,14 +554,16 @@ def test_predictor_single_path_matches_jax(float32_pair, tmp_path):
                 assert (got_img == want_img).all(-1).mean() >= 0.9999
 
 
-def test_unported_options_raise(tmp_path):
+def test_unported_options_raise(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="item 13"):
         PixelClassifier(3, int8=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         PixelClassifier(3, s2d_stem=True, device="cpu")
     (tmp_path / "model.meta").write_bytes(b"")  # a TF1 checkpoint, beside no .h5
-    with pytest.raises(NotImplementedError, match="item 10"):
+    monkeypatch.setitem(sys.modules, "tensorflow", None)  # as on the card's machine
+    with pytest.raises(ImportError, match="load_tf1_checkpoint"):
         PixelClassifier(3, model_path=str(tmp_path / "model.h5"), device="cpu")
+    monkeypatch.undo()
     port = PixelClassifier(3, device="cpu")
     for kw in (dict(n_devices=2), dict(band_rows=256)):
         with pytest.raises(NotImplementedError, match="item 12"):
