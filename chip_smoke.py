@@ -27,6 +27,11 @@ the kernels' launch counts set to 0 just before it and read just after:
   ``page-segmentation --text_contours`` over the predicted PNGs and over
   full-resolution A4 label PNGs, on the host and on the card, whose files
   must be byte-equal;
+* the single-card predict options over the corpus checkpoint: the
+  throughput cell with ``int8=True`` (its int8 logits held against the CPU's
+  bit for bit) and with the space-to-depth stem, ``Predictor(band_rows=...)``
+  on a 6016x4096 page against the whole-page forward (peak device memory of
+  each), and the CLI's ``export --platforms cuda`` run by ``AotClassifier``;
 * the HTTP service: ``PredictionServer`` over ``BatchingService`` on
   localhost, its fused route under concurrent clients and its spline route
   (device vote);
@@ -100,6 +105,8 @@ SEG_XML_PAGES = 40         # gen-masks: PageXML of 40 A4 layouts, all 5 settings
 SEG_FULL_PAGES = 16        # page-segmentation over full-resolution A4 label PNGs
 SEG_BATCH = 8              # --seg_batch: pages per device morphology chain
 SEG_REPS = 5
+BAND_ROWS = 1024           # Predictor(band_rows=...) on the LARGE_PAGE
+EXPORT_PAGES = 4           # AotClassifier batch, plus one ragged page
 DEVICE = "cuda"
 
 # the cuDNN and TF32 flags, at PyTorch's defaults: the port's CLI sets none
@@ -1250,6 +1257,292 @@ def phase_segment(work: str):
 
 
 # the served labels must equal a direct run of the same batch
+def _decisive(logits: torch.Tensor) -> torch.Tensor:
+    """Pixels of NCHW float32 ``logits`` whose top-2 margin is at least
+    DECISIVE of the largest |logit|."""
+    top2 = logits.topk(2, dim=1).values
+    return (top2[:, 0] - top2[:, 1]) >= DECISIVE * logits.abs().max()
+
+
+def _in_turns(fns: dict, reps: int = 5) -> dict:
+    """{name: [ms, ms]}: each function's median CUDA-event time, measured in
+    the turns a, b, b, a."""
+    names = list(fns)
+    times = {name: [] for name in names}
+    for name in names + names[::-1]:
+        times[name].append(cuda_ms(fns[name], reps=reps, warmup=1))
+    return times
+
+
+@backend_flags("options")
+def phase_options(pages, binaries, model: str, work: str):
+    """The single-card predict options over the corpus checkpoint (FCNSkip,
+    3 classes), each path with the kernels' launch counts set to 0 just
+    before it and read just after:
+
+    * int8: ThroughputPredictor(int8=True, cc_vote="pallas",
+      download="packed") over the N_PAGES A4 pages at batch BATCH; its
+      labels against the host union-find vote over the same int8 argmax;
+      with the card's calibrated ranges carried to the CPU, the card's int8
+      logits of CHECK_PAGES pages against the CPU int8 twin's, bit for bit;
+      device ms a batch beside bf16's; calibration ms;
+    * s2d: the same cell with FCNSkip(s2d_stem=True) in bf16; float32 card
+      logits against the dense stem's (TF32 off), bf16 argmax against dense
+      on decisive pixels; device ms of both;
+    * banded: one LARGE_PAGE prepared page through Predictor(band_rows=1024)
+      and through the unbanded classifier, float32 with TF32 off: logits,
+      labels on decisive pixels, peak device memory and ms of each;
+    * export: the CLI's ``export --platforms cuda`` -> AotClassifier on the
+      card over 4 prepared pages at the bucket shape and one ragged page,
+      against PixelClassifier's float32 argmax; ms a batch of each."""
+    import os
+
+    from page_segmentation_tpu_torch import native
+    from page_segmentation_tpu_torch.cli.main import main as cli
+    from page_segmentation_tpu_torch.core.colors import DEFAULT_IMAGE_MAP
+    from page_segmentation_tpu_torch.data.dataset import SingleData
+    from page_segmentation_tpu_torch.data.loader import DatasetLoader
+    from page_segmentation_tpu_torch.inference.aot import AotClassifier
+    from page_segmentation_tpu_torch.inference.classifier import PixelClassifier
+    from page_segmentation_tpu_torch.inference.pipeline import (
+        ThroughputPredictor,
+        _device_normalize,
+        make_fused_predict,
+    )
+    from page_segmentation_tpu_torch.inference.predictor import Predictor, PredictSettings
+    from page_segmentation_tpu_torch.models.bridge import amax_from_jax
+    from page_segmentation_tpu_torch.models.fcn import FCNSkip
+    from page_segmentation_tpu_torch.models.quant import QuantFCNSkip
+    from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
+    from page_segmentation_tpu_torch.ops.pad import pad_to
+
+    palette = DEFAULT_IMAGE_MAP.palette
+    (out_h, out_w), (pad_h, pad_w) = normalized_shapes()
+    n_batches = -(-N_PAGES // BATCH)
+    want_launches = cuda_cc.LAUNCHES_PER_CALL * n_batches
+    state = PixelClassifier(3, model_path=model, device="cpu").module.state_dict()
+    report, launches = {}, {}
+
+    def counted(name, fn):
+        """Run one path with the launch counts set to 0 just before it."""
+        cuda_cc.launches = cuda_add_one.launches = 0
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = {"cc_label": cuda_cc.launches, "add_one": cuda_add_one.launches}
+        return wall, result
+
+    def throughput(module, int8=False):
+        return ThroughputPredictor(
+            module, state, palette, A4, SCALE, host_decimate=HOST_DECIMATE,
+            compute_dtype=torch.bfloat16, download="packed", cc_vote="pallas", int8=int8,
+            yield_pred=True, device=DEVICE)
+
+    def run_cell(tp):
+        tp.execute_batch(tp.prep_batch(pages[:BATCH], binaries[:BATCH]))  # warm-up, uncounted
+        torch.cuda.synchronize()
+        return lambda: [b[0].copy() for b in tp.run(pages, binaries, batch_size=BATCH)]
+
+    dense = FCNSkip(3, dtype=torch.bfloat16)
+    tp16 = throughput(dense)
+    dec, ink = tp16._prep(pages[:BATCH], binaries[:BATCH])
+    dec = tp16.transfers.take(dec)
+    ink_dev = torch.from_numpy(tp16._pack_ink(ink)).to(DEVICE)
+    normalize = _device_normalize(out_h, out_w, pad_h, pad_w)
+    x_check = normalize(dec[:CHECK_PAGES])  # float32, the fused program's input
+
+    # ---- int8 throughput
+    tp8 = throughput(FCNSkip(3, dtype=torch.bfloat16), int8=True)
+    wall, preds = counted("int8_throughput", run_cell(tp8))
+    if launches["int8_throughput"] != {"cc_label": want_launches, "add_one": 0}:
+        raise AssertionError(f"int8 path launches {launches['int8_throughput']}")
+    twin = tp8._int8_twin
+    plain = make_fused_predict(twin, (out_h, out_w), compute_dtype=torch.bfloat16,
+                               download="pred", device=DEVICE)
+    unvoted = plain(dec, tp8.palette_dev).cpu().numpy()
+    ink_padded = np.zeros(unvoted.shape, np.uint8)
+    ink_padded[:, :out_h, :out_w] = ink
+    for i in range(BATCH):
+        host = native.cc_vote(ink_padded[i], unvoted[i], 3)[:out_h, :out_w]
+        if not np.array_equal(host, preds[0][i]):
+            raise AssertionError(f"int8 page {i}: labels != host vote over the int8 argmax")
+    cpu_twin = QuantFCNSkip(3, mode="int8")
+    cpu_twin.load_state_dict(state)
+    amax_from_jax(cpu_twin, tp8.amax)
+    x16 = x_check.to(torch.bfloat16)
+    with torch.inference_mode():
+        card8 = twin.forward_nchw(x16).cpu()
+        cpu8 = cpu_twin.forward_nchw(x16.cpu())
+    int8_err = float((card8 - cpu8).abs().max())
+    if not torch.equal(card8, cpu8):
+        raise AssertionError(f"card int8 logits != CPU int8 logits (max |d| {int8_err:.3e})")
+    with torch.inference_mode():
+        ref32 = FCNSkip(3).to(DEVICE)
+        ref32.load_state_dict(state)
+        with backend_flags("options: float32 reference", NO_TF32):
+            logits32 = ref32.forward_nchw(x_check)
+        dense.to(DEVICE).load_state_dict(state)
+        pred16 = dense.forward_nchw(x16).argmax(1).cpu()
+    decisive = _decisive(logits32).cpu()
+    agree8 = (card8.argmax(1) == pred16)
+    calibrate_ms = cuda_ms(lambda: tp8._calibrate_fn(dec), reps=3, warmup=1)
+    _, busy_us, by_name, _ = profiled(lambda: tp8.fused(dec, tp8.palette_dev, ink_dev))
+    top8 = {k: v / 1e3 for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]}
+    ms = _in_turns({"bf16": lambda: tp16.fused(dec, tp16.palette_dev, ink_dev),
+                    "int8": lambda: tp8.fused(dec, tp8.palette_dev, ink_dev)})
+    report["int8"] = {
+        "pages_per_s": N_PAGES / wall, "device_ms": ms["int8"], "bf16_device_ms": ms["bf16"],
+        "calibrate_ms": calibrate_ms, "decisive_share": float(decisive.float().mean()),
+        "agree_bf16_decisive": float(agree8[decisive].float().mean()),
+        "agree_bf16_raw": float(agree8.float().mean()), "card_vs_cpu_max_abs": int8_err,
+        "profiled_busy_ms": busy_us / 1e3, "top_kernels_ms": top8}
+    log(f"phase options, int8: {N_PAGES} pages at batch {BATCH} in {wall:.3f} s = "
+        f"{N_PAGES / wall:.2f} pages/s; device ms a batch int8 {ms['int8']} vs bf16 {ms['bf16']} "
+        f"(turns bf16, int8, int8, bf16); calibration {calibrate_ms:.3f} ms; labels == host vote over "
+        f"the int8 argmax on {BATCH} pages; card int8 logits == CPU int8 logits bit for bit on "
+        f"{CHECK_PAGES} pages; int8 vs bf16 argmax {report['int8']['agree_bf16_decisive']:.6f} on "
+        f"decisive pixels ({report['int8']['decisive_share']:.3f} of all), "
+        f"{report['int8']['agree_bf16_raw']:.6f} raw; cc_label launches "
+        f"{launches['int8_throughput']['cc_label']}")
+    log(f"  int8 device program under torch.profiler: busy {busy_us / 1e3:.3f} ms; top kernels (ms) "
+        + json.dumps({k[:60]: round(v, 3) for k, v in top8.items()}))
+    if report["int8"]["agree_bf16_decisive"] < 0.9:
+        raise AssertionError("int8 argmax disagrees with bf16 on decisive pixels")
+
+    # ---- s2d throughput
+    s2d = FCNSkip(3, dtype=torch.bfloat16, s2d_stem=True)
+    tp_s2d = throughput(s2d)
+    runs_before = s2d.s2d_runs
+    wall, preds = counted("s2d_throughput", run_cell(tp_s2d))
+    if launches["s2d_throughput"] != {"cc_label": want_launches, "add_one": 0}:
+        raise AssertionError(f"s2d path launches {launches['s2d_throughput']}")
+    if s2d.s2d_runs - runs_before != n_batches + 1:
+        raise AssertionError(f"the s2d stem ran {s2d.s2d_runs - runs_before} times")
+    s2d32 = FCNSkip(3, s2d_stem=True).to(DEVICE)
+    s2d32.load_state_dict(state)
+    with backend_flags("options: s2d float32", NO_TF32), torch.inference_mode():
+        s2d_logits32 = s2d32.forward_nchw(x_check)
+    with torch.inference_mode():
+        s2d_pred16 = s2d.forward_nchw(x16).argmax(1).cpu()
+    s2d_err = float((s2d_logits32 - logits32).abs().max() / logits32.abs().max())
+    agree_s2d = s2d_pred16 == pred16
+    ms = _in_turns({"dense": lambda: tp16.fused(dec, tp16.palette_dev, ink_dev),
+                    "s2d": lambda: tp_s2d.fused(dec, tp_s2d.palette_dev, ink_dev)})
+    report["s2d"] = {"pages_per_s": N_PAGES / wall, "device_ms": ms["s2d"],
+                     "dense_device_ms": ms["dense"], "float32_rel_err": s2d_err,
+                     "agree_dense_bf16_decisive": float(agree_s2d[decisive].float().mean()),
+                     "agree_dense_bf16_raw": float(agree_s2d.float().mean())}
+    log(f"phase options, s2d: {N_PAGES} pages at batch {BATCH} in {wall:.3f} s = "
+        f"{N_PAGES / wall:.2f} pages/s; device ms a batch s2d {ms['s2d']} vs dense {ms['dense']}; "
+        f"float32 s2d vs dense max |d logit| / max |logit| {s2d_err:.2e}; bf16 argmax vs dense "
+        f"{report['s2d']['agree_dense_bf16_decisive']:.6f} on decisive pixels, "
+        f"{report['s2d']['agree_dense_bf16_raw']:.6f} raw; cc_label launches "
+        f"{launches['s2d_throughput']['cc_label']}")
+    if s2d_err > 1e-4 or report["s2d"]["agree_dense_bf16_decisive"] < 0.999:
+        raise AssertionError("the s2d stem disagrees with the dense stem")
+
+    # ---- banded forward of one large prepared page
+    page = 255 - synthesize_pages(1, *LARGE_PAGE, seed=SEED + 1, rules=True)[0][0]
+    data = SingleData(image=page, binary=np.ones(LARGE_PAGE, np.uint8))
+    net32 = PixelClassifier(3, model_path=model, device=DEVICE)
+    banded = Predictor(PredictSettings(n_classes=3, band_rows=BAND_ROWS), network=net32)
+    if not banded._use_banded(data):
+        raise AssertionError("the large page does not take the banded route")
+    stats = {}
+
+    def measured(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        wall, out = counted(name, fn)
+        stats[name] = {"ms": wall * 1e3,
+                       "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20}
+        return out
+
+    with backend_flags("options: banded", NO_TF32):
+        for _ in range(2):  # the first round warms both shapes up
+            logit_b, _, pred_b = measured("banded", lambda: banded._banded_single_data(data))
+            logit_u, _, pred_u = measured("whole", lambda: net32.predict_single_data(data))
+    if launches["banded"] != {"cc_label": 0, "add_one": 0}:
+        raise AssertionError(f"banded path launches {launches['banded']}")
+    band_err = float(np.abs(logit_b - logit_u).max() / np.abs(logit_u).max())
+    top2 = np.sort(logit_u, -1)[..., -2:]
+    band_decisive = top2[..., 1] - top2[..., 0] >= DECISIVE * np.abs(logit_u).max()
+    same = pred_b == pred_u
+    report["banded"] = {"page": list(LARGE_PAGE), "band_rows": BAND_ROWS,
+                        "rel_err": band_err, "agree_decisive": float(same[band_decisive].mean()),
+                        "agree_raw": float(same.mean()), **{f"{k}_{m}": v[m] for k, v in stats.items()
+                                                             for m in ("ms", "peak_mib")}}
+    log(f"phase options, banded: {LARGE_PAGE} page, band_rows {BAND_ROWS}: peak "
+        f"{stats['banded']['peak_mib']:.1f} MiB in {stats['banded']['ms']:.1f} ms vs whole "
+        f"{stats['whole']['peak_mib']:.1f} MiB in {stats['whole']['ms']:.1f} ms (host softmax "
+        f"included); max |d logit| / max |logit| {band_err:.2e}; labels equal on "
+        f"{report['banded']['agree_decisive']:.6f} of decisive pixels, {report['banded']['agree_raw']:.6f} "
+        f"raw; cc_label launches {launches['banded']['cc_label']}")
+    if band_err > 5e-4 or report["banded"]["agree_decisive"] < 1.0:
+        raise AssertionError("the banded forward disagrees with the whole page's")
+
+    # ---- the exported program
+    artifact = os.path.join(work, "model.pt2z")
+    t0 = time.perf_counter()
+    rc = cli(["export", "--load", model, "--output", artifact, "--platforms", DEVICE])
+    export_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"export returned {rc}")
+    prepared = DatasetLoader(6, DEFAULT_IMAGE_MAP, prediction=True).load_data([
+        SingleData(image=pages[i], binary=binaries[i], line_height_px=LINE_HEIGHT)
+        for i in range(EXPORT_PAGES + 1)])
+    batch = np.stack([pad_to(d.image, (pad_h, pad_w)) for d in prepared.data[:EXPORT_PAGES]])
+    ragged = prepared.data[EXPORT_PAGES].image
+
+    def export_path():
+        aot = AotClassifier(artifact, device=DEVICE)
+        return aot, aot.predict(batch), aot.predict(ragged)
+
+    with backend_flags("options: export", NO_TF32):
+        _, (aot, got, got_ragged) = counted("export", export_path)
+        x = torch.from_numpy(batch).to(DEVICE)
+        eager = net32.masks_device(x, None, pack=False).cpu().numpy()
+        with torch.inference_mode():
+            logits = net32.module.forward_nchw(
+                net32.architecture.device_preprocess()(x.float()[..., None]).permute(0, 3, 1, 2))
+        export_decisive = _decisive(logits).cpu().numpy()
+        ragged_padded = np.zeros((1, pad_h, pad_w), np.uint8)
+        ragged_padded[0, : ragged.shape[0], : ragged.shape[1]] = ragged
+        eager_ragged = net32.masks_device(torch.from_numpy(ragged_padded).to(DEVICE), None,
+                                          pack=False).cpu().numpy()[0, : ragged.shape[0], : ragged.shape[1]]
+        ms = {"eager": [], "exported": []}
+        for name in ("eager", "exported", "exported", "eager"):
+            fn = ((lambda: net32.masks_device(torch.from_numpy(batch).to(DEVICE), None, pack=False)
+                   .cpu().numpy()) if name == "eager" else (lambda: aot.predict(batch)))
+            fn()
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[name].append(float(np.median(times)))
+    if launches["export"] != {"cc_label": 0, "add_one": 0}:
+        raise AssertionError(f"export path launches {launches['export']}")
+    same = got == eager
+    report["export"] = {"export_s": export_s, "ms_eager": ms["eager"], "ms_exported": ms["exported"],
+                        "agree_decisive": float(same[export_decisive].mean()),
+                        "agree_raw": float(same.mean()),
+                        "ragged_agree_raw": float((got_ragged == eager_ragged).mean())}
+    log(f"phase options, export: export --platforms {DEVICE} in {export_s:.2f} s "
+        f"({os.path.getsize(artifact) / 2**20:.1f} MiB); AotClassifier on the card vs "
+        f"PixelClassifier float32 on {EXPORT_PAGES} pages at {(pad_h, pad_w)}: labels equal on "
+        f"{report['export']['agree_decisive']:.6f} of decisive pixels, {report['export']['agree_raw']:.6f} "
+        f"raw; the {ragged.shape} page padded and cropped: {report['export']['ragged_agree_raw']:.6f}; "
+        f"ms a batch of {EXPORT_PAGES} (host clock, upload and download included) exported "
+        f"{ms['exported']} vs eager {ms['eager']}")
+    if got.shape != batch.shape or got_ragged.shape != ragged.shape \
+            or report["export"]["agree_decisive"] < 1.0:
+        raise AssertionError("the exported program disagrees with the classifier")
+    return {"report": report, "launches": launches}
+
+
 @backend_flags("serve", {"cudnn.deterministic": True})
 def phase_serve(pages, model: str):
     """PredictionServer over BatchingService on localhost, fused route with
@@ -2086,6 +2379,7 @@ def main(argv=None) -> int:
     try:
         corpus = phase_corpus(pages, binaries, work)
         segment = phase_segment(work)
+        options = phase_options(pages, binaries, corpus["model"], work)
         serve = phase_serve(pages, corpus["model"])
         train = phase_train(pages, binaries, work)
         families = phase_families(pages, binaries, work)
@@ -2103,6 +2397,9 @@ def main(argv=None) -> int:
         "serve_stats": serve["stats"], "serve_spline_pages_per_s": serve["spline_pages_per_s"],
         "corpus_stages_ms": corpus["stages_ms"], "serve_stages_ms": serve["stages_ms"]}))
     log("segmentation: " + json.dumps({k: v for k, v in segment.items() if k != "launches"}))
+    log("predict options: " + json.dumps(options["report"]))
+    option_launches = {path: options["launches"][path] for path in
+                       ("int8_throughput", "s2d_throughput", "banded", "export")}
     log("training: " + json.dumps({k: v for k, v in train.items() if k != "launches"}))
     log("families: " + json.dumps(families["families"]))
     log("training families: " + json.dumps(train_families["families"]))
@@ -2136,7 +2433,8 @@ def main(argv=None) -> int:
                              "families_throughput": family_launches,
                              "families_library": families["library_launches"],
                              "families_train": train_families["launches"]["cc_label"],
-                             "segment": segment["launches"]["cc_label"]},
+                             "segment": segment["launches"]["cc_label"],
+                             **{k: v["cc_label"] for k, v in option_launches.items()}},
         "tiled": kernel["tiled"],
     }, {
         "name": "add_one",
@@ -2150,7 +2448,8 @@ def main(argv=None) -> int:
                              "serve_fused": 0, "serve_spline": 0,
                              "train": train["launches"]["add_one"], "families_throughput": 0,
                              "families_library": 0, "families_train": train_families["launches"]["add_one"],
-                             "segment": segment["launches"]["add_one"]},
+                             "segment": segment["launches"]["add_one"],
+                             **{k: v["add_one"] for k, v in option_launches.items()}},
         "max_abs_err": add_one["max_abs_err"],
         "ms": add_one["ms"],
         "plain_ms": add_one["plain_ms"],

@@ -14,8 +14,11 @@ streamer (``RawCorpusPredictor``), the batching HTTP service
 (``BatchingService``, ``PredictionServer``) and the command line
 (``python -m page_segmentation_tpu_torch.cli``: ``predict``, ``serve``,
 ``evaluate``, ``compute-image-normalizations``, ``create-dataset-file``,
-``train``, and the ground-truth and segmentation tools ``gen-masks`` and
-``page-segmentation``).  The training path (dataset JSON -> ``DatasetLoader`` ->
+``train``, ``export``, and the ground-truth and segmentation tools
+``gen-masks`` and ``page-segmentation``).  The predict options: int8
+post-training quantization (``models/quant.py``), the space-to-depth stem
+(``models/s2d.py``), row bands of tall pages (``parallel/spatial.py``) and
+the ``torch.export`` artifact (``inference/aot.py``, ``AotClassifier``).  The training path (dataset JSON -> ``DatasetLoader`` ->
 ``Trainer`` -> checkpoints with the optimizer state, and the ``Network``
 facade) trains FCNSkip with cuDNN's convolutions through autograd.
 ``tools/repro_download.py`` checks that downloads come back whole under
@@ -51,6 +54,8 @@ _LAZY = {
     "RawPage": ("page_segmentation_tpu_torch.inference.corpus", "RawPage"),
     "BatchingService": ("page_segmentation_tpu_torch.inference.server", "BatchingService"),
     "PredictionServer": ("page_segmentation_tpu_torch.inference.server", "PredictionServer"),
+    "AotClassifier": ("page_segmentation_tpu_torch.inference.aot", "AotClassifier"),
+    "export_classifier": ("page_segmentation_tpu_torch.inference.aot", "export_classifier"),
     "cc_min_label": ("page_segmentation_tpu_torch.ops.cuda_cc", "cc_min_label"),
     "cc_min_label_batch": ("page_segmentation_tpu_torch.ops.cuda_cc", "cc_min_label_batch"),
     "cc_vote_batch": ("page_segmentation_tpu_torch.ops.cuda_cc", "cc_vote_batch"),

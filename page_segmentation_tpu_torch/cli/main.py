@@ -15,12 +15,17 @@ defaults and error behaviour.  Ported subcommands:
     gen-masks                      PageXML ground truth -> color mask PNGs
     page-segmentation              predictions -> region renders (+ PageXML)
 
+    export                         the predict program as a torch.export artifact
+
 ``predict``, ``serve`` and ``train`` run on the card unless ``--device cpu``
 is given; ``page-segmentation`` uses the card only with ``--morph_backend
-device``.  ``export``, and the options of ``train`` that are not ported (``--distributed``, ``--n_devices``
-> 1, ``--checkpoint_backend orbax``, ``--auto_resume``), keep their flags
-and exit with an error naming the ROADMAP item that ports them.  A bare invocation is ``predict``; a user
-error prints one line and returns 2.
+device``; ``export`` exports one program per device of ``--platforms``
+(``cuda cpu`` by default).  ``predict`` and ``serve`` take ``--int8`` and
+``--s2d_stem``, ``predict`` also ``--band_rows``.  The options that are not
+ported (``--n_devices`` > 1 and ``train``'s ``--distributed``, ROADMAP queue 1
+item 12b; ``--checkpoint_backend orbax`` and ``--auto_resume``, item 11) keep
+their flags and exit with an error naming the item that ports them.  A bare
+invocation is ``predict``; a user error prints one line and returns 2.
 
     python -m page_segmentation_tpu_torch.cli predict --device cpu --load MODEL \\
         --images DIR --binary DIR --char_height 14 --output OUT
@@ -71,14 +76,6 @@ def _resolve_split_files(args, key: str):
         elif entries:
             files = files + [args.split_file]
     return files
-
-
-def _not_ported(item: str, what: str):
-    def command(args) -> int:
-        raise NotImplementedError(
-            f"{args.command} ({what}) is not ported yet: ROADMAP queue 1 item {item}")
-
-    return command
 
 
 # ------------------------------------------------------------------- predict
@@ -194,8 +191,8 @@ def _predict_pipeline(args, color_map, entries) -> int:
 
 # --------------------------------------------------------------------- train
 _TRAIN_NOT_PORTED = (
-    (lambda a: a.distributed, "--distributed (multi-host training)", "12"),
-    (lambda a: a.n_devices and a.n_devices > 1, "--n_devices > 1 (data-parallel training)", "12"),
+    (lambda a: a.distributed, "--distributed (multi-host training)", "12b"),
+    (lambda a: a.n_devices and a.n_devices > 1, "--n_devices > 1 (data-parallel training)", "12b"),
     (lambda a: a.checkpoint_backend == "orbax", "--checkpoint_backend orbax", "11"),
     (lambda a: a.auto_resume, "--auto_resume (Orbax checkpoints)", "11"),
 )
@@ -366,6 +363,41 @@ def cmd_serve(args) -> int:
     return 0
 
 
+# -------------------------------------------------------------------- export
+def cmd_export(args) -> int:
+    """The predict program (weights inside) as one ``torch.export``
+    artifact (``inference/aot.py``)."""
+    from ..inference.aot import export_classifier
+    from ..inference.classifier import PixelClassifier
+    from ..models.registry import Architecture
+
+    color_map = _load_color_map(args.color_map)
+    # the classifier only carries the weights to each platform's export
+    classifier = PixelClassifier(
+        n_classes=args.n_classes or color_map.n_classes,
+        architecture=Architecture(args.architecture),
+        model_path=args.load,
+        compute_dtype=args.dtype,
+        s2d_stem=args.s2d_stem,
+        device="cpu",
+    )
+    shapes = None
+    if args.shapes:
+        shapes = []
+        for spec in args.shapes:
+            h, _, w = spec.partition("x")
+            shapes.append((int(h), int(w)))
+    manifest = export_classifier(classifier, args.output,
+                                 output="logits" if args.logits else "pred",
+                                 platforms=args.platforms, shapes=shapes)
+    size_mb = os.path.getsize(args.output) / 1e6
+    print(f"Exported {manifest['architecture']} ({manifest['output']}, "
+          f"platforms {','.join(manifest['platforms'])}, "
+          f"{'symbolic shapes' if manifest['symbolic'] else manifest['shapes']}) "
+          f"-> {args.output} ({size_mb:.1f} MB)")
+    return 0
+
+
 # ------------------------------------------------------------------ evaluate
 def cmd_evaluate(args) -> int:
     import numpy as np
@@ -524,14 +556,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "through the throughput path (host decimate, device resample, "
                         "forward and argmax, one upload and one packed download per "
                         "batch); outputs at the normalized scale")
-    p.add_argument("--int8", action="store_true", help="int8 inference (ROADMAP queue 1 item 13)")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 post-training quantization of the batched paths (fcn/fcn_skip; "
+                        "calibrated on the first batch; int8 x int8 -> int32 convolutions)")
     p.add_argument("--s2d_stem", action="store_true",
-                   help="space-to-depth stem rewrite (ROADMAP queue 1 item 13)")
+                   help="space-to-depth rewrite of the full-resolution stem convs "
+                        "(fcn/fcn_skip; same parameters, same arithmetic)")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="spatial partitioning over devices (ROADMAP queue 1 item 12)")
+                   help="spatial partitioning over devices (not ported: ROADMAP queue 1 item 12b)")
     p.add_argument("--spatial_threshold", type=int, default=16_000_000)
     p.add_argument("--band_rows", type=int, default=None,
-                   help="banded forward of tall pages (ROADMAP queue 1 item 12)")
+                   help="pages taller than this (plus the halo margins) forward in sequential "
+                        "row bands with receptive-field halos: exact, and the peak device "
+                        "memory is one window's activations")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--resize_backend", default="scipy", choices=["scipy", "pil"])
@@ -673,23 +710,29 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--resize_backend", default="scipy", choices=["scipy", "pil"],
                    help="the spline prepare's resize")
     v.add_argument("--s2d_stem", action="store_true")
-    v.add_argument("--int8", action="store_true")
+    v.add_argument("--int8", action="store_true",
+                   help="serve the int8-quantized model (fcn/fcn_skip; calibrated on the first batch)")
     v.add_argument("--device", default="cuda", choices=["cuda", "cpu"], help=device_help)
     v.set_defaults(func=cmd_serve)
 
     # export
-    x = sub.add_parser("export", help="serialize the predict program (not ported yet)")
-    x.add_argument("--load", required=True)
-    x.add_argument("--output", required=True)
-    x.add_argument("--architecture", default="fcn_skip")
+    x = sub.add_parser("export", help="serialize the predict program (weights included) "
+                                      "to a self-contained torch.export artifact")
+    x.add_argument("--load", required=True, help="model checkpoint dir or Keras .h5")
+    x.add_argument("--output", required=True, help="artifact path")
+    x.add_argument("--architecture", default="fcn_skip",
+                   help="build architecture (replaced by the checkpoint's own when it names one)")
     x.add_argument("--color_map", default=None)
     x.add_argument("--n_classes", type=int, default=None)
-    x.add_argument("--logits", action="store_true")
-    x.add_argument("--platforms", nargs="+", default=["tpu", "cpu"])
-    x.add_argument("--shapes", nargs="*", default=None, metavar="HxW")
+    x.add_argument("--logits", action="store_true",
+                   help="export float32 logits instead of the uint8 class map")
+    x.add_argument("--platforms", nargs="+", default=["cuda", "cpu"], choices=["cuda", "cpu"],
+                   help="devices to export a program for (cuda needs a card)")
+    x.add_argument("--shapes", nargs="*", default=None, metavar="HxW",
+                   help="static shapes (e.g. 1024x768); default: one symbolic-shape program")
     x.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     x.add_argument("--s2d_stem", action="store_true")
-    x.set_defaults(func=_not_ported("13", "a torch.export artifact"))
+    x.set_defaults(func=cmd_export)
 
     # evaluate
     e = sub.add_parser("evaluate", help="compare predictions against masks")

@@ -7,6 +7,11 @@ multiple of the architecture's stride factor) before the forward and the
 logits cropped back exactly.  PyTorch runs eagerly, so there is no
 per-shape compile cache: one module, in eval mode, under
 ``torch.inference_mode()``.
+
+``int8=True`` (fcn/fcn_skip) runs the batched path (``predict_batch_masks``)
+through the int8 twin (``models/quant.py``), calibrated in float32 on the
+first batch it sees; ``predict_single_data`` stays float, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -51,13 +56,14 @@ class PixelClassifier:
         int8: bool = False,
         device="cuda",
     ):
-        if int8:
-            raise NotImplementedError("int8 inference is not ported yet: ROADMAP queue 1 item 13")
         self.device = resolve_device(device)
         self.n_classes = n_classes
         self.compute_dtype = _DTYPES.get(compute_dtype, compute_dtype)
         self.bucket_granularity = bucket_granularity
         self.s2d_stem = s2d_stem
+        self.int8 = bool(int8)
+        self._int8_twin = None  # built at the first int8 batch
+        self._amax = None  # the twin's calibrated ranges (JAX amax layout)
         self._variables = None
         self._rebuild(architecture)
         if model_path:
@@ -76,6 +82,7 @@ class PixelClassifier:
             value = {"params": value}
         self.module.load_state_dict(params_from_jax(value))
         self._variables = dict(value)
+        self._int8_twin = self._amax = None  # new weights: recalibrate
 
     @property
     def params(self):
@@ -90,6 +97,37 @@ class PixelClassifier:
         """The collections besides ``params``: ``batch_stats`` for the
         BatchNorm families, {} for the others."""
         return {k: v for k, v in (self._variables or {}).items() if k != "params"}
+
+    @property
+    def amax(self):
+        """The int8 twin's calibrated ranges (the JAX package's ``amax``
+        collection), None until the first int8 batch; setting them skips
+        the calibration."""
+        return self._amax
+
+    @amax.setter
+    def amax(self, value):
+        from ..models.bridge import amax_from_jax
+
+        amax_from_jax(self._twin(), value)
+        self._amax = value
+
+    def _twin(self):
+        if self._int8_twin is None:
+            from ..models.quant import twin_classes_for
+
+            if self.rgb:
+                raise ValueError("int8 supports the grayscale FCN families only")
+            self._int8_twin = twin_classes_for(self.module)
+        return self._int8_twin[1]
+
+    def _calibrate(self, images: torch.Tensor) -> None:
+        """One float32 forward of the calibrate twin over ``images`` / 255
+        records the int8 twin's ranges."""
+        from ..models.quant import calibrate
+
+        self._twin()
+        self.amax = calibrate(self._int8_twin[0], [images.to(torch.float32)[..., None] / 255.0])
 
     # ----------------------------------------------------------- params I/O
     def init_params(self, seed: int = 0) -> None:
@@ -166,16 +204,20 @@ class PixelClassifier:
         class map as (N, H, W // 4) 2-bit codes (``pack``) or (N, H, W)
         uint8.  The RGB families normalize the padded page repeated to 3
         channels, as the JAX package does on the host, so the padding
-        becomes the family's normalized 0, not 0."""
+        becomes the family's normalized 0, not 0.  With ``int8`` the int8
+        twin runs, calibrated on the first batch."""
         from ..ops.cuda_cc import cc_vote_batch
         from .output import pack_classes_device, unpack_bits_device
 
+        if self.int8 and self._amax is None:
+            self._calibrate(images)
+        module = self._twin() if self.int8 else self.module
         with torch.inference_mode():
             x = images.to(torch.float32)[..., None]
             if self.rgb:
                 x = x.expand(-1, -1, -1, 3)
             x = self.architecture.device_preprocess()(x).permute(0, 3, 1, 2)
-            pred = self.module.forward_nchw(x).argmax(dim=1).to(torch.uint8)
+            pred = module.forward_nchw(x).argmax(dim=1).to(torch.uint8)
             if ink is not None:
                 mask = unpack_bits_device(ink) if ink.shape[-1] * 8 == pred.shape[-1] else ink != 0
                 pred = cc_vote_batch(pred, mask, n_classes=self.n_classes, device=pred.device)

@@ -61,6 +61,8 @@ class RawCorpusPredictor:
     and the next one decoding on the prefetch thread).
     ``cc_vote`` is passed to the ThroughputPredictor as it is: True votes on
     the host in the finish stage, ``"pallas"`` on the card's CUDA labeler.
+    ``int8`` (the grayscale FCNs) runs each group's int8 twin, calibrated on
+    the group's first batch.
     """
 
     def __init__(
@@ -77,8 +79,8 @@ class RawCorpusPredictor:
         binarize: str = "threshold",
         reuse_output_buffers: bool = False,
     ):
-        if int8:
-            raise NotImplementedError("int8 serving is not ported yet: ROADMAP queue 1 item 13")
+        if classifier.rgb and int8:
+            raise ValueError("int8 supports the grayscale FCN families only")
         if binarize not in ("threshold", "otsu"):
             raise ValueError(f"binarize must be 'threshold' or 'otsu', got {binarize!r}")
         self.classifier = classifier
@@ -91,6 +93,7 @@ class RawCorpusPredictor:
             download = "pred"
         self.download = download
         self.cc_vote = cc_vote
+        self.int8 = int8
         # pages with binary_path=None: 'threshold' = global 128 (as
         # imread_bin), 'otsu' = per-page Otsu (strictly above t -> 255)
         self.binarize = binarize
@@ -135,6 +138,7 @@ class RawCorpusPredictor:
                 compute_dtype=self.compute_dtype,
                 download=self.download,
                 cc_vote=self.cc_vote,
+                int8=self.int8,
                 preprocess_mode=arch.preprocess_mode,
                 packed_binary=packed_binary,
                 reuse_output_buffers=self.reuse_output_buffers,

@@ -12,6 +12,11 @@ color/overlay/inverted trio.
 batch i+1 and uploads it from pinned memory on a side stream, the calling
 thread dispatches batch i, and a downloader thread waits for batch i-1's
 device-to-host copy and builds its trio.
+
+``int8=True`` (the grayscale FCNs) runs the int8 twin of the module
+(``models/quant.py``); the first dispatched batch calibrates it with one
+float32 forward of the calibrate twin (``make_fused_calibrate``), whose
+ranges then stay.
 """
 from __future__ import annotations
 
@@ -67,6 +72,26 @@ def _device_normalize(out_h: int, out_w: int, pad_h: int, pad_w: int,
     return normalize
 
 
+def make_fused_calibrate(calibrate_module, normalized_shape: Tuple[int, int],
+                         stride_factor: int = 8, bucket_granularity: int = 1):
+    """fn(pages_u8 (N, hd, wd)) -> the ``amax`` collection: the fused
+    program's normalization, then one float32 forward of the int8
+    calibrate twin recording each layer's input range."""
+    from ..models.quant import calibrate
+
+    out_h, out_w = normalized_shape
+    pad_h = round_up(out_h, stride_factor * bucket_granularity)
+    pad_w = round_up(out_w, stride_factor * bucket_granularity)
+    normalize = _device_normalize(out_h, out_w, pad_h, pad_w)
+
+    def fn(pages_u8):
+        with torch.no_grad():
+            img = normalize(pages_u8)
+        return calibrate(calibrate_module, [img.permute(0, 2, 3, 1)])
+
+    return fn
+
+
 def make_fused_predict(
     module,
     normalized_shape: Tuple[int, int],
@@ -91,7 +116,8 @@ def make_fused_predict(
     download.  Both names route to the same kernel.  The module's own
     weights are used; it is moved to ``device`` and put in eval mode."""
     if mesh is not None:
-        raise NotImplementedError("mesh (multi-device data parallelism) is not ported yet")
+        raise NotImplementedError("mesh (multi-device data parallelism) is not ported yet: "
+                                  "ROADMAP queue 1 item 12b")
     if download not in ("color", "pred", "packed"):
         raise ValueError(f"download must be 'color', 'pred' or 'packed', got {download!r}")
     cc_vote = "xla" if cc_vote is True else cc_vote
@@ -222,8 +248,8 @@ class ThroughputPredictor:
         packed_binary: bool = False,
         device="cuda",
     ):
-        if int8:
-            raise NotImplementedError("int8 serving is not ported yet")
+        if int8 and preprocess_mode != "gray":
+            raise ValueError("int8 supports the grayscale FCN families only")
         self.transfers = DeviceTransfers(device)
         self.device = self.transfers.device
         in_h, in_w = page_shape
@@ -260,6 +286,15 @@ class ThroughputPredictor:
         self._ring_len = 4  # grown by run() for deeper in-flight windows
         if variables is not None:
             module.load_state_dict(variables)
+        self.int8 = bool(int8)
+        self._amax = self._int8_twin = self._calibrate_fn = None
+        if self.int8:
+            from ..models.quant import twin_classes_for
+
+            calibrate_twin, module = twin_classes_for(module.to(self.device))
+            self._int8_twin = module
+            self._calibrate_fn = make_fused_calibrate(
+                calibrate_twin, (out_h, out_w), stride_factor=stride_factor)
         device_vote = self.cc_vote if self.cc_vote in ("xla", "pallas") else False
         self.fused = make_fused_predict(
             module, (out_h, out_w), stride_factor=stride_factor,
@@ -276,6 +311,19 @@ class ThroughputPredictor:
         self.packed_binary = bool(packed_binary)
         self._col_bytes = self.col_idx >> 3
         self._col_shift = (7 - (self.col_idx & 7)).astype(np.uint8)
+
+    @property
+    def amax(self):
+        """The int8 twin's ranges (the JAX ``amax`` collection): None until
+        the first dispatch calibrates them; setting them skips that."""
+        return self._amax
+
+    @amax.setter
+    def amax(self, value):
+        from ..models.bridge import amax_from_jax
+
+        amax_from_jax(self._int8_twin, value)
+        self._amax = value
 
     # ------------------------------------------------------------ host steps
     def _gather_ink_bits(self, packed: np.ndarray) -> np.ndarray:
@@ -371,9 +419,12 @@ class ThroughputPredictor:
     def _dispatch(self, prepared) -> torch.Tensor:
         dec, _, ink_staged = prepared
         take = self.transfers.take
+        pages = take(dec)
+        if self._calibrate_fn is not None and self._amax is None:
+            self.amax = self._calibrate_fn(pages)
         if ink_staged is not None:
-            return self.fused(take(dec), self.palette_dev, take(ink_staged))
-        return self.fused(take(dec), self.palette_dev)
+            return self.fused(pages, self.palette_dev, take(ink_staged))
+        return self.fused(pages, self.palette_dev)
 
     def _download_finish(self, download, ink: np.ndarray):
         """Wait for the copy's event, then build the host trio; runs on the

@@ -6,7 +6,9 @@ Counterpart of ``page_segmentation_tpu/inference/predictor.py``:
 ``predict_dataset_fast``, which groups pages by bucket shape, runs each
 batch through ``PixelClassifier.predict_batch_masks`` (with the device
 cc-vote when the lone post-processor is the cc-majority vote) and yields
-``(data, pred, color, overlay, inverted)`` per page.
+``(data, pred, color, overlay, inverted)`` per page.  With
+``PredictSettings.band_rows`` a page taller than one band window forwards
+in sequential row bands (``parallel/spatial.py`` ``banded_forward``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import numpy as np
 from ..core.colors import ColorMap
 from ..data.dataset import Dataset, SingleData, entry_shape, materialize
 from ..ops.pad import bucket_shape, pad_to
+from ..utils import gray_to_rgb
 from .classifier import PixelClassifier
 from .output import Masks, generate_output_masks, output_data, scale_to_original_shape
 
@@ -44,22 +47,29 @@ class PredictSettings:
     # (device labeler + histogram vote); None = on when the network runs on
     # a CUDA device
     device_post_process: Optional[bool] = None
+    # the space-to-depth stem of fcn/fcn_skip (models/s2d.py): same
+    # parameters, same arithmetic
     s2d_stem: bool = False
+    # int8 post-training quantization of the batched path (models/quant.py;
+    # fcn/fcn_skip), calibrated on the first batch; predict_single stays float
     int8: bool = False
-    # spatial partitioning over several devices and single-device row
-    # banding: not ported (ROADMAP queue 1 item 12)
+    # spatial partitioning over several devices: not ported (ROADMAP queue 1
+    # item 12b)
     n_devices: Optional[int] = None
     spatial_threshold: int = 16_000_000
+    # pages taller than band_rows + 2 * margin forward in sequential row
+    # bands with receptive-field halos (parallel/spatial.py): exact, and the
+    # peak device memory is one window's activations
     band_rows: Optional[int] = None
 
 
 class Predictor:
     def __init__(self, settings: PredictSettings, network: Optional[PixelClassifier] = None,
                  device="cuda"):
-        if (settings.n_devices and settings.n_devices > 1) or settings.band_rows:
+        if settings.n_devices and settings.n_devices > 1:
             raise NotImplementedError(
-                "n_devices > 1 (spatial partitioning) and band_rows (banded forward) are "
-                "not ported yet: ROADMAP queue 1 item 12")
+                "n_devices > 1 (spatial partitioning) is not ported yet: "
+                "ROADMAP queue 1 item 12b")
         self.settings = settings
         self.network = network
         if not network:
@@ -80,9 +90,44 @@ class Predictor:
         for data in dataset.data:
             yield self.predict_single(data)
 
+    def _preprocessed_hwc(self, data: SingleData) -> np.ndarray:
+        """The network's normalized (H, W, C) float32 page, unpadded (a gray
+        page repeated to 3 channels for the RGB families)."""
+        net = self.network
+        image = gray_to_rgb(data.image) if net.rgb else data.image
+        arr = np.asarray(net.preprocess(np.asarray(image, np.float32)), np.float32)
+        return arr[..., None] if arr.ndim == 2 else arr
+
+    def _use_banded(self, data: SingleData) -> bool:
+        """Band a page only where banding is exact (not EfficientNet: its
+        squeeze-excite pools over the whole page) and the page is taller
+        than one window."""
+        from ..parallel.spatial import DEFAULT_MARGINS
+
+        margin = DEFAULT_MARGINS.get(self.network.architecture.value)
+        if not self.settings.band_rows or margin is None:
+            return False
+        return data.image.shape[0] > self.settings.band_rows + 2 * margin
+
+    def _banded_single_data(self, data: SingleData):
+        """(logit, prob, pred) of one page forwarded in row bands."""
+        from scipy.special import softmax
+
+        from ..parallel.spatial import DEFAULT_MARGINS, banded_forward
+
+        net = self.network
+        logit = banded_forward(net.module, self._preprocessed_hwc(data),
+                               band_rows=self.settings.band_rows,
+                               margin=DEFAULT_MARGINS[net.architecture.value],
+                               stride_factor=net.architecture.stride_factor)
+        return logit, softmax(logit, -1), np.argmax(logit, -1)
+
     def predict_single(self, data: SingleData) -> Prediction:
         data = materialize([data])[0]  # a lazy entry -> a loaded copy
-        _, prob, pred = self.network.predict_single_data(data)
+        if self._use_banded(data):
+            _, prob, pred = self._banded_single_data(data)
+        else:
+            _, prob, pred = self.network.predict_single_data(data)
         if self.settings.high_res_output:
             data, pred = scale_to_original_shape(data, pred)
         for processor in self.settings.post_process or []:

@@ -12,6 +12,11 @@ maps to torch's layout (conv ``(out, in / groups, kh, kw)``, conv-transpose
 ``batch_stats`` leaves as the BatchNorm buffers.  Any tree of the params'
 shapes (the optimizer's moments) maps the same way.
 
+The int8 twins' calibrated ranges (``models/quant.py``) live in per-layer
+buffers outside the state dict; :func:`amax_to_jax` and
+:func:`amax_from_jax` carry them to and from the JAX package's ``amax``
+collection, ``{"conv1": {"in": float32}, ...}``.
+
 :func:`init_variables_numpy` draws a module's variables from a seed.
 Checkpoints (``params.msgpack``) are read by ``train/checkpoint.py``.
 """
@@ -78,6 +83,30 @@ def params_to_jax(state: Mapping[str, torch.Tensor]):
         else:
             _set(stats if leaf in _STATS else params, path + [leaf], arr.copy())
     return {"params": params, "batch_stats": stats} if stats else params
+
+
+def _quant_layers(module: torch.nn.Module) -> Dict[str, torch.nn.Module]:
+    from .quant import _Quantized
+
+    return {name: layer for name, layer in module.named_modules() if isinstance(layer, _Quantized)}
+
+
+def amax_to_jax(module: torch.nn.Module) -> dict:
+    """The calibrated ranges of an int8 twin as the JAX ``amax`` collection:
+    ``{layer: {"in": float32}}``."""
+    return {name: {"in": np.float32(layer.amax.item())}
+            for name, layer in _quant_layers(module).items()}
+
+
+def amax_from_jax(module: torch.nn.Module, amax: Mapping) -> None:
+    """Set an int8 twin's ranges from an ``amax`` collection (the JAX
+    package's or :func:`amax_to_jax`'s); the layer names must match."""
+    layers = _quant_layers(module)
+    if set(amax) != set(layers):
+        raise ValueError(f"amax names {sorted(amax)} do not match the layers {sorted(layers)}")
+    with torch.no_grad():
+        for name, layer in layers.items():
+            layer.amax.fill_(float(np.asarray(amax[name]["in"])))
 
 
 def _jax_shape(name: str, tensor: torch.Tensor) -> Tuple[int, ...]:

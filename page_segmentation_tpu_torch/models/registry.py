@@ -64,11 +64,10 @@ class Architecture(enum.Enum):
 
     def model(self, n_classes: int, dtype=None, s2d_stem: bool = False):
         """The torch module of this architecture, computing in ``dtype``
-        (float32 by default), in eval mode."""
-        if s2d_stem:
-            raise NotImplementedError(
-                "s2d_stem (the space-to-depth stem rewrite) is not ported yet: "
-                "ROADMAP queue 1 item 13")
+        (float32 by default), in eval mode.  ``s2d_stem`` (fcn/fcn_skip)
+        runs the stem convs in the space-to-depth layout
+        (``models/s2d.py``); the other families ignore it, as in the JAX
+        package."""
         dtype = dtype or torch.float32
         if self.value.startswith("effb"):
             from .efficientnet import EffNetSeg
@@ -88,6 +87,8 @@ class Architecture(enum.Enum):
             Architecture.RES_NET: ResNet50Seg,
             Architecture.MOBILE_NET: MobileNetSeg,
         }[self]
+        if cls in (FCNSkip, FCN):
+            return cls(n_classes, dtype=dtype, s2d_stem=s2d_stem).eval()
         return cls(n_classes, dtype=dtype).eval()
 
     @property

@@ -75,7 +75,7 @@ def make_step_fns(
     """
     if mesh is not None:
         raise NotImplementedError(
-            "data-parallel steps over a device mesh are not ported yet: ROADMAP queue 1 item 12")
+            "data-parallel steps over a device mesh are not ported yet: ROADMAP queue 1 item 12b")
     n_cw = len(class_weights) if class_weights is not None else 0
     cw_default = (torch.as_tensor(class_weights, dtype=torch.float32)
                   if class_weights is not None else None)

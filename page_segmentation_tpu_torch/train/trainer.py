@@ -124,14 +124,14 @@ class TrainSettings(NamedTuple):
     batch_size: int = 1
     bucket_granularity: int = 1
     compute_dtype: str = "float32"
-    n_devices: Optional[int] = None  # > 1: ROADMAP queue 1 item 12
+    n_devices: Optional[int] = None  # > 1: ROADMAP queue 1 item 12b
     seed: int = 0
     checkpoint_backend: str = "msgpack"  # "orbax": ROADMAP queue 1 item 11
     device_augmentation: bool = False  # the affine on the device
     remat: bool = False  # recompute the forward in the backward pass
     auto_resume: bool = False  # Orbax only: ROADMAP queue 1 item 11
     pretrained_encoder: Optional[str] = None  # a backbone .h5 or encoder directory
-    distributed: bool = False  # ROADMAP queue 1 item 12
+    distributed: bool = False  # ROADMAP queue 1 item 12b
     # uint8 pixels and masks plus valid dims, normalized on the device
     compact_transfer: bool = True
     export_h5: bool = False  # also write <model_name>.h5 with each checkpoint
@@ -174,7 +174,7 @@ class Trainer:
         self.settings = s = settings
         self._class_weight_cache = {}
         if s.distributed or (s.n_devices and s.n_devices > 1):
-            raise _not_ported("training over several devices (distributed, n_devices > 1)", "12")
+            raise _not_ported("training over several devices (distributed, n_devices > 1)", "12b")
         if s.checkpoint_backend == "orbax" or s.auto_resume:
             from .checkpoint import OrbaxCheckpointer
 

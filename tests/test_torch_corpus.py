@@ -153,8 +153,7 @@ def test_window_bounds_and_order_and_written_trio(tmp_path, classifier):
 
 
 def test_unported_and_invalid_options_raise(classifier):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _runner(classifier, int8=True)
+    assert _runner(classifier, int8=True).int8  # ported: tests/test_torch_quant.py
     with pytest.raises(ValueError, match="binarize"):
         _runner(classifier, binarize="sauvola")
 

@@ -233,3 +233,46 @@ def test_torch_dilate_erode_on_the_card_equal_the_cpu(cuda_device):
     for k in ((3, 3), (4, 6), (9, 2)):
         for fn in (dilate_torch, erode_torch):
             assert torch.equal(fn(x.to(cuda_device), k).cpu(), fn(x, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [5, 17, 4099])
+def test_int8_layers_on_the_card_equal_the_cpu(cuda_device, rows):
+    """The card's integer GEMM (cuBLAS through torch._int_mm, with the
+    patch and kernel matrices padded to its shape rules) gives the CPU's
+    int32 accumulators, and the float steps around it the same bits."""
+    from page_segmentation_tpu_torch.models import quant
+
+    rng = np.random.default_rng(rows)
+    for layer in (quant.QConv(3, 5, (5, 5), mode="int8"), quant.QConv(50, 3, (1, 1), mode="int8"),
+                  quant.QConvTranspose(70, 20, (2, 2), (2, 2), mode="int8"),
+                  quant.QConvTranspose(6, 5, (5, 5), mode="int8")):
+        with torch.no_grad():
+            layer.weight.copy_(torch.from_numpy(rng.standard_normal(layer.weight.shape).astype(np.float32)))
+            layer.bias.copy_(torch.from_numpy(rng.standard_normal(layer.bias.shape).astype(np.float32)))
+            layer.amax.fill_(2.5)
+        cin = layer.weight.shape[0 if isinstance(layer, quant.QConvTranspose) else 1]
+        x = torch.from_numpy(rng.standard_normal((1, cin, rows, 3)).astype(np.float32))
+        with torch.no_grad():
+            want_acc, want = layer.accumulate(x), layer(x)
+            layer.to(cuda_device)
+            got_acc, got = layer.accumulate(x.to(cuda_device)), layer(x.to(cuda_device))
+        assert torch.equal(got_acc.cpu(), want_acc) and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_exported_program_on_the_card(cuda_device, tmp_path):
+    from page_segmentation_tpu_torch.inference.aot import AotClassifier, export_classifier
+    from page_segmentation_tpu_torch.inference.classifier import PixelClassifier
+
+    net = PixelClassifier(3, device=cuda_device, seed=2)
+    path = str(tmp_path / "model.zip")
+    export_classifier(net, path, platforms=["cuda"])
+    images = np.random.default_rng(3).integers(0, 256, (2, 61, 45)).astype(np.uint8)
+    padded = np.zeros((2, 64, 48), np.uint8)
+    padded[:, :61, :45] = images
+    want = net.masks_device(torch.from_numpy(padded).to(cuda_device), None, pack=False).cpu().numpy()
+    got = AotClassifier(path, device=cuda_device).predict(images)
+    assert (got == want[:, :61, :45]).mean() >= 0.999
+    with pytest.raises(ValueError, match="not 'cpu'"):
+        AotClassifier(path, device="cpu")

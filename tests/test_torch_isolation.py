@@ -110,6 +110,7 @@ def test_importing_the_port_loads_no_jax():
 def _entry_points():
     from page_segmentation_tpu_torch.core.colors import DEFAULT_IMAGE_MAP
     from page_segmentation_tpu_torch.inference.classifier import PixelClassifier
+    from page_segmentation_tpu_torch.inference.aot import AotClassifier
     from page_segmentation_tpu_torch.inference.postprocess import cc_vote_on_device
     from page_segmentation_tpu_torch.inference.predictor import Predictor, PredictSettings
     from page_segmentation_tpu_torch.inference.pipeline import (
@@ -145,13 +146,15 @@ def _entry_points():
             display=0, output_dir="unused", threads=1)),
         "Network": lambda: Network("train", n_classes=3),
         "train CLI": lambda: cli_main(["train", "--output", "unused"]),
+        "AotClassifier": lambda: AotClassifier("unused.zip"),
     }
 
 
 @pytest.mark.parametrize("name", ["ThroughputPredictor", "make_fused_predict", "cc_min_label",
                                   "cc_min_label_batch", "cc_min_label_tiled", "cc_vote_batch",
                                   "PixelClassifier", "Predictor", "cc_vote_on_device", "add_one",
-                                  "repro_download.main", "Trainer", "Network", "train CLI"])
+                                  "repro_download.main", "Trainer", "Network", "train CLI",
+                                  "AotClassifier"])
 def test_default_device_is_cuda_and_raises_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")

@@ -146,5 +146,14 @@ def test_init_params_numpy_is_seeded_glorot():
 
 
 def test_s2d_stem_not_ported():
-    with pytest.raises(NotImplementedError, match="s2d"):
-        torch_fcn.FCNSkip(3, s2d_stem=True)
+    """The s2d stem is ported (tests/test_torch_s2d.py): it builds, and its
+    forward equals the dense stem's."""
+    fast, dense = torch_fcn.FCNSkip(3, s2d_stem=True), torch_fcn.FCNSkip(3)
+    gen = torch.Generator().manual_seed(0)
+    state = {k: 0.1 * torch.randn(v.shape, generator=gen) for k, v in dense.state_dict().items()}
+    fast.load_state_dict(state)
+    dense.load_state_dict(state)
+    x = torch.rand(1, 1, 16, 24, generator=gen)
+    with torch.no_grad():
+        torch.testing.assert_close(fast.forward_nchw(x), dense.forward_nchw(x), atol=1e-4, rtol=1e-4)
+    assert fast.s2d_runs == 1

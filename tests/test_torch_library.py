@@ -434,8 +434,7 @@ def test_architecture_registry_matches_jax():
                                    np.asarray(jax_arch.device_preprocess()(jnp.asarray(x))), rtol=1e-6)
         with torch.device("meta"):
             assert arch.model(3).n_classes == 3  # every name builds
-    with pytest.raises(NotImplementedError, match="item 13"):
-        registry.Architecture.FCN_SKIP.model(3, s2d_stem=True)
+    assert registry.Architecture.FCN_SKIP.model(3, s2d_stem=True).s2d_stem  # tests/test_torch_s2d.py
 
 
 # ----------------------------------------------------------------- forwards
@@ -555,16 +554,15 @@ def test_predictor_single_path_matches_jax(float32_pair, tmp_path):
 
 
 def test_unported_options_raise(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        PixelClassifier(3, int8=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        PixelClassifier(3, s2d_stem=True, device="cpu")
+    # int8 and the s2d stem are ported (tests/test_torch_quant.py, test_torch_s2d.py)
+    assert PixelClassifier(3, int8=True, device="cpu").int8
+    assert PixelClassifier(3, s2d_stem=True, device="cpu").module.s2d_stem
     (tmp_path / "model.meta").write_bytes(b"")  # a TF1 checkpoint, beside no .h5
     monkeypatch.setitem(sys.modules, "tensorflow", None)  # as on the card's machine
     with pytest.raises(ImportError, match="load_tf1_checkpoint"):
         PixelClassifier(3, model_path=str(tmp_path / "model.h5"), device="cpu")
     monkeypatch.undo()
     port = PixelClassifier(3, device="cpu")
-    for kw in (dict(n_devices=2), dict(band_rows=256)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            Predictor(PredictSettings(n_classes=3, **kw), network=port)
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        Predictor(PredictSettings(n_classes=3, n_devices=2), network=port)
+    assert Predictor(PredictSettings(n_classes=3, band_rows=256), network=port)  # ported

@@ -227,5 +227,7 @@ def test_init_variables_numpy_is_seeded_glorot():
 
 
 def test_s2d_stem_still_raises():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        Architecture.UNET.model(3, s2d_stem=True)
+    """The other families ignore ``s2d_stem``, as the JAX modules do (the
+    flag is ported for fcn/fcn_skip: tests/test_torch_s2d.py)."""
+    plain, flagged = Architecture.UNET.model(3), Architecture.UNET.model(3, s2d_stem=True)
+    assert type(flagged) is type(plain) and flagged.state_dict().keys() == plain.state_dict().keys()

@@ -184,8 +184,9 @@ def test_unported_options_raise(weights):
     common = (module, None, PALETTE, PAGE, SCALE)
     with pytest.raises(NotImplementedError, match="mesh"):
         torch_pipeline.ThroughputPredictor(*common, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        torch_pipeline.ThroughputPredictor(*common, int8=True, device="cpu")
+    # int8 is ported (tests/test_torch_quant.py): it builds the int8 twin
+    tp = torch_pipeline.ThroughputPredictor(*common, int8=True, device="cpu")
+    assert tp.int8 and tp.amax is None
     with pytest.raises(ValueError, match="packed"):
         torch_pipeline.ThroughputPredictor(FCNSkip(6), None, np.zeros((6, 3), np.uint8),
                                            PAGE, SCALE, download="packed", device="cpu")
