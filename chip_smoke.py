@@ -45,7 +45,14 @@ the kernels' launch counts set to 0 just before it and read just after:
   bf16 against float32, and mobile_net from a checkpoint on the library
   batch path;
 * the Trainer on mobile_net (BatchNorm) and unet (dropout), with one
-  float32 BatchNorm step held against the CPU.
+  float32 BatchNorm step held against the CPU;
+* several devices, on a mesh of this card twice (``phase_mesh``): the
+  throughput cell with ``mesh=`` (K1 on every shard; trio byte-equal to no
+  mesh), ``spatial_forward`` of a 6016x4096 page in two bands with halos
+  against the whole page, ``ParallelPredictor``, data-parallel train steps
+  against the single-device step (FCNSkip) and the CPU mesh (mobile_net),
+  and ``Trainer(distributed=True)`` over an NCCL group of one process with
+  the step-versioned checkpoints, then its ``auto_resume``.
 
 Each phase runs under PyTorch's default cuDNN and TF32 flags (those the
 port's CLI keeps) unless it states its own, prints them, and restores the
@@ -107,6 +114,11 @@ SEG_BATCH = 8              # --seg_batch: pages per device morphology chain
 SEG_REPS = 5
 BAND_ROWS = 1024           # Predictor(band_rows=...) on the LARGE_PAGE
 EXPORT_PAGES = 4           # AotClassifier batch, plus one ragged page
+MESH_SHARDS = 2            # phase_mesh: shards of a mesh of the one card
+MESH_RAGGED = 47           # a ragged batch after the throughput cell's pages
+MESH_EXECUTOR_PAGES = 8    # ParallelPredictor batch
+MESH_STEP_PAGES = 7        # FCNSkip data-parallel step: odd, one shard padded
+MESH_BN_PAGES = 3          # mobile_net data-parallel step, card vs CPU
 DEVICE = "cuda"
 
 # the cuDNN and TF32 flags, at PyTorch's defaults: the port's CLI sets none
@@ -2295,6 +2307,362 @@ def phase_train_families(trainer, work: str):
     return {"families": results, "launches": launches}
 
 
+@backend_flags("mesh", {"cudnn.deterministic": True})
+def phase_mesh(pages, binaries, model: str, train_settings, work: str):
+    """Several devices on one card: a mesh that holds the card MESH_SHARDS
+    times, so the halo copies, the per-shard labeler and the gradient sums
+    run, though nothing crosses between cards.  Every path below runs with
+    the kernels' counts set to 0 just before it; only the throughput path
+    may launch the labeler, exactly LAUNCHES_PER_CALL a shard a batch."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from page_segmentation_tpu_torch.core.colors import DEFAULT_IMAGE_MAP
+    from page_segmentation_tpu_torch.data.dataset import SingleData
+    from page_segmentation_tpu_torch.data.loader import DatasetLoader
+    from page_segmentation_tpu_torch.inference.classifier import PixelClassifier
+    from page_segmentation_tpu_torch.inference.pipeline import ThroughputPredictor
+    from page_segmentation_tpu_torch.inference.predictor import Predictor, PredictSettings
+    from page_segmentation_tpu_torch.models.bridge import init_variables_numpy, params_from_jax
+    from page_segmentation_tpu_torch.models.fcn import FCNSkip
+    from page_segmentation_tpu_torch.models.registry import Architecture, Optimizers
+    from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
+    from page_segmentation_tpu_torch.ops.pad import pad_to
+    from page_segmentation_tpu_torch.parallel import distributed
+    from page_segmentation_tpu_torch.parallel.executor import ParallelPredictor
+    from page_segmentation_tpu_torch.parallel.mesh import make_mesh
+    from page_segmentation_tpu_torch.parallel.spatial import (
+        DEFAULT_MARGINS,
+        spatial_forward,
+        spatial_forward_batch,
+    )
+    from page_segmentation_tpu_torch.train.checkpoint import OrbaxCheckpointer, load_checkpoint
+    from page_segmentation_tpu_torch.train.metrics import loss as ce_loss
+    from page_segmentation_tpu_torch.train.steps import make_step_fns
+    from page_segmentation_tpu_torch.train.trainer import Trainer
+
+    card = torch.device(DEVICE if DEVICE == "cpu" else f"{DEVICE}:0")
+    mesh = make_mesh(devices=[card] * MESH_SHARDS)
+    report, launches = {"shards": MESH_SHARDS, "mesh": repr(mesh)}, {}
+
+    def counted(name, fn):
+        """Run one path with the launch counts set to 0 just before it."""
+        torch.cuda.synchronize()
+        cuda_cc.launches = cuda_add_one.launches = 0
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = {"cc_label": cuda_cc.launches, "add_one": cuda_add_one.launches}
+        return wall, result
+
+    def peak_mib(fn):
+        """Peak device memory of ``fn`` above what was allocated before it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    def rel(a, b):
+        flat_a, flat_b = (torch.cat([t.double().cpu().flatten() for _, t in sorted(x.items())])
+                          for x in (a, b))
+        return float((flat_a - flat_b).norm() / flat_b.norm())
+
+    # ---- 1. the throughput cell, data-parallel over the mesh
+    variables, _ = load_checkpoint(model)
+    module = FCNSkip(3, dtype=torch.bfloat16)
+    module.load_state_dict(params_from_jax(variables))
+
+    def predictor(m):
+        return ThroughputPredictor(module, None, DEFAULT_IMAGE_MAP.palette, A4, SCALE,
+                                   host_decimate=HOST_DECIMATE, compute_dtype=torch.bfloat16,
+                                   download="packed", cc_vote="pallas", mesh=m, device=DEVICE)
+
+    tp_none, tp_mesh = predictor(None), predictor(mesh)
+    ragged = (list(pages[:MESH_RAGGED]), list(binaries[:MESH_RAGGED]))
+
+    def run(tp, n_pad):
+        """The cell's batches, then the ragged batch as the serving engine
+        stages it (``n_pad`` slots: the mesh pads its own to the shards)."""
+        outs = [tuple(a.copy() for a in trio) for trio in tp.run(pages, binaries, batch_size=BATCH)]
+        outs.append(tuple(a[:MESH_RAGGED].copy()
+                          for a in tp.execute_batch(tp.prep_pages(*ragged, n_pad))))
+        return outs
+
+    # the no-mesh reference runs the ragged batch padded as the mesh pads it:
+    # cuDNN may take another algorithm for another batch size (checked below)
+    padded_n = -(-MESH_RAGGED // MESH_SHARDS) * MESH_SHARDS
+    for tp, n_pad in ((tp_none, padded_n), (tp_mesh, MESH_RAGGED), (tp_none, MESH_RAGGED)):
+        tp.execute_batch(tp.prep_batch(pages[:BATCH], binaries[:BATCH]))  # warm-up, uncounted
+        tp.execute_batch(tp.prep_pages(*ragged, n_pad))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    mesh_s, outs_mesh = counted("mesh_throughput", lambda: run(tp_mesh, MESH_RAGGED))
+    card_peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    none_s, outs_none = counted("throughput_no_mesh", lambda: run(tp_none, padded_n))
+    unpadded = tp_none.execute_batch(tp_none.prep_pages(*ragged, MESH_RAGGED))
+    ragged_agree = float(np.mean([np.mean(a == b) for a, b in zip(unpadded, outs_none[-1])]))
+    n_batches = -(-N_PAGES // BATCH) + 1
+    want = {"mesh_throughput": cuda_cc.LAUNCHES_PER_CALL * MESH_SHARDS * n_batches,
+            "throughput_no_mesh": cuda_cc.LAUNCHES_PER_CALL * n_batches}
+    for name, count in want.items():
+        if launches[name] != {"cc_label": count, "add_one": 0}:
+            raise AssertionError(f"{name}: launches {launches[name]}, expected {count} cc_label")
+    for i, (got, ref) in enumerate(zip(outs_mesh, outs_none)):
+        for a, b in zip(got, ref):
+            if a.shape != b.shape or not np.array_equal(a, b):
+                raise AssertionError(f"mesh throughput batch {i}: trio differs from no mesh")
+    if outs_mesh[-1][0].shape[0] != MESH_RAGGED:
+        raise AssertionError(f"ragged batch came back with {outs_mesh[-1][0].shape[0]} pages")
+    device_ms = {}
+    for name, tp in (("mesh", tp_mesh), ("none", tp_none)):
+        prepared = tp.prep_batch(pages[:BATCH], binaries[:BATCH])
+        dec_t, ink_t = tp._take(prepared[0]), tp._take(prepared[2])
+        device_ms[name] = cuda_ms(lambda: tp.fused(dec_t, tp.palette_dev, ink_t), reps=5, warmup=1)
+    prepared = tp_mesh.prep_batch(pages[:BATCH], binaries[:BATCH])
+    dec_t, ink_t = tp_mesh._take(prepared[0]), tp_mesh._take(prepared[2])
+    shard_peak = peak_mib(lambda: tp_mesh.fused(dec_t[:1], tp_mesh.palette_dev, ink_t[:1]))
+    report["throughput"] = {
+        "pages": N_PAGES + MESH_RAGGED, "batches": n_batches,
+        "ms_per_batch_mesh": mesh_s * 1e3 / n_batches, "ms_per_batch_none": none_s * 1e3 / n_batches,
+        "device_ms_per_batch_mesh": device_ms["mesh"], "device_ms_per_batch_none": device_ms["none"],
+        "halo_bytes_per_page": 0, "card_peak_mib": card_peak, "shard_peak_mib": shard_peak,
+        "cc_label_launches": launches["mesh_throughput"]["cc_label"],
+        "no_mesh_ragged_47_vs_48_trio_agree": ragged_agree}
+    log(f"phase mesh, throughput: {N_PAGES} pages at batch {BATCH} + {MESH_RAGGED} over "
+        f"{MESH_SHARDS} shards of one card: {mesh_s * 1e3 / n_batches:.1f} ms a batch vs "
+        f"{none_s * 1e3 / n_batches:.1f} without a mesh; device program {device_ms['mesh']:.3f} vs "
+        f"{device_ms['none']:.3f} ms a batch of {BATCH}; peak {card_peak:.1f} MiB on the card, "
+        f"{shard_peak:.1f} MiB for one shard alone; trio byte-equal to no mesh (no mesh on the "
+        f"ragged batch at {MESH_RAGGED} vs {padded_n} slots: {ragged_agree:.6f} of trio bytes "
+        f"equal); cc_label launches "
+        f"{launches['mesh_throughput']['cc_label']} (= {cuda_cc.LAUNCHES_PER_CALL} x {MESH_SHARDS} "
+        f"shards x {n_batches} batches)")
+
+    # ---- 2. one large page in row bands across the mesh, halos exchanged
+    net32 = PixelClassifier(3, model_path=model, device=DEVICE)
+    page = 255 - synthesize_pages(1, *LARGE_PAGE, seed=SEED + 1, rules=True)[0][0]
+    arr = Predictor(PredictSettings(n_classes=3), network=net32)._preprocessed_hwc(SingleData(image=page))
+    margin = DEFAULT_MARGINS["fcn_skip"]
+    one = make_mesh(devices=[card])
+    space = make_mesh(devices=[card] * MESH_SHARDS, shape=(1, MESH_SHARDS), axis_names=("data", "space"))
+    times = {}
+    with backend_flags("mesh: spatial", {**NO_TF32, "cudnn.deterministic": True}):
+        for _ in range(2):  # the first round warms every window shape up
+            times["split"], split = counted("mesh_spatial", lambda: spatial_forward(
+                net32.module, arr, mesh, margin=margin))
+            times["whole"], whole = counted("whole_page", lambda: spatial_forward(
+                net32.module, arr, one, margin=margin))
+            times["batch"], batched = counted("mesh_spatial_batch", lambda: spatial_forward_batch(
+                net32.module, arr[None], space, margin=margin))
+        band_h = LARGE_PAGE[0] // MESH_SHARDS
+        window = torch.from_numpy(np.ascontiguousarray(arr[None, : band_h + 2 * margin])).to(card)
+        with torch.inference_mode():
+            shard_peak = peak_mib(lambda: net32.module(window))
+            whole_input = torch.from_numpy(np.ascontiguousarray(arr[None])).to(card)
+            whole_peak = peak_mib(lambda: net32.module(whole_input))
+        del window, whole_input
+    spatial_err = float(np.abs(split - whole).max() / np.abs(whole).max())
+    batch_err = float(np.abs(batched[0] - whole).max() / np.abs(whole).max())
+    # labels: equal on every decisive pixel (a top-2 margin of at least
+    # DECISIVE of the largest |logit|); a near-tie may flip under the ~1e-7
+    # the other window shapes' convolutions move the logits by
+    top2 = np.sort(whole, -1)[..., -2:]
+    margins = top2[..., 1] - top2[..., 0]
+    decisive = margins >= DECISIVE * np.abs(whole).max()
+    flips = {}
+    for name, got in (("split", split), ("batch", batched[0])):
+        differ = got.argmax(-1) != whole.argmax(-1)
+        flips[name] = {"pixels": int(differ.sum()), "decisive": int((differ & decisive).sum()),
+                       "max_margin": float(margins[differ].max()) if differ.any() else 0.0}
+    labels_equal = float((split.argmax(-1) == whole.argmax(-1)).mean())
+    batch_labels_equal = float((batched[0].argmax(-1) == whole.argmax(-1)).mean())
+    halo_bytes = 2 * (MESH_SHARDS - 1) * 2 * margin * arr.shape[1] * arr.shape[2] * 4
+    report["spatial"] = {"page": list(LARGE_PAGE), "margin": margin, "rel_err": spatial_err,
+                         "batch_rel_err": batch_err, "labels_equal": labels_equal,
+                         "batch_labels_equal": batch_labels_equal, "ms_split": times["split"] * 1e3,
+                         "ms_whole": times["whole"] * 1e3, "ms_batch_1x2": times["batch"] * 1e3,
+                         "halo_bytes_per_page": halo_bytes, "shard_peak_mib": shard_peak,
+                         "whole_peak_mib": whole_peak, "label_flips": flips,
+                         "decisive_share": float(decisive.mean())}
+    log(f"phase mesh, spatial: {LARGE_PAGE} float32 page (TF32 off) in {MESH_SHARDS} bands with "
+        f"{margin}-row halos: {times['split'] * 1e3:.1f} ms vs whole {times['whole'] * 1e3:.1f} ms "
+        f"(host transfers included), (1 data x {MESH_SHARDS} space) batch {times['batch'] * 1e3:.1f} "
+        f"ms; max |d logit| / max |logit| {spatial_err:.2e} (batch {batch_err:.2e}); labels differ on "
+        f"{flips['split']['pixels']} ({flips['batch']['pixels']}) of {whole.shape[0] * whole.shape[1]} "
+        f"pixels, {flips['split']['decisive']} ({flips['batch']['decisive']}) decisive, largest top-2 "
+        f"margin among them {flips['split']['max_margin']:.2e}; halo {halo_bytes} bytes a page between "
+        f"neighbours (not copied on one card); one shard's window alone peaks at {shard_peak:.1f} "
+        f"MiB, the whole page at {whole_peak:.1f} MiB")
+    if max(spatial_err, batch_err) > 5e-4 or flips["split"]["decisive"] or flips["batch"]["decisive"]:
+        raise AssertionError("the bands across the mesh disagree with the whole page")
+
+    # ---- 3. ParallelPredictor: the executor over the mesh
+    (out_h, out_w), padded = normalized_shapes()
+    prepared_pages = DatasetLoader(6, DEFAULT_IMAGE_MAP, prediction=True).load_data([
+        SingleData(image=pages[i], binary=binaries[i], line_height_px=LINE_HEIGHT)
+        for i in range(MESH_EXECUTOR_PAGES)])
+    images = np.stack([pad_to(d.image, padded) for d in prepared_pages.data])
+    executor = ParallelPredictor(net32, mesh)
+    with backend_flags("mesh: executor", {**NO_TF32, "cudnn.deterministic": True}):
+        executor.predict_batch(images)  # warm-up
+        exec_s, pred = counted("mesh_executor", lambda: executor.predict_batch(images))
+        with torch.inference_mode():
+            def single():
+                x = torch.from_numpy(net32.preprocess(images.astype(np.float32))[..., None])
+                return net32.module(x.to(card))
+
+            single().argmax(-1).cpu()  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            single().argmax(-1).cpu()  # as the executor: host preprocess, labels downloaded
+            single_s = time.perf_counter() - t0
+            logits = single().cpu().numpy()
+    top2 = np.sort(logits, -1)[..., -2:]
+    decisive = top2[..., 1] - top2[..., 0] >= DECISIVE * np.abs(logits).max()
+    differ = pred != logits.argmax(-1)
+    report["executor"] = {"pages": MESH_EXECUTOR_PAGES, "shape": list(images.shape),
+                          "ms_mesh": exec_s * 1e3, "ms_single": single_s * 1e3,
+                          "label_flips": int(differ.sum()), "decisive_flips": int((differ & decisive).sum())}
+    log(f"phase mesh, executor: ParallelPredictor on {images.shape} (float32, TF32 off) in "
+        f"{exec_s * 1e3:.1f} ms vs one device {single_s * 1e3:.1f} ms (host preprocess and label "
+        f"download included in both); "
+        f"labels differ from the one-device argmax on {int(differ.sum())} of {differ.size} pixels, "
+        f"{int((differ & decisive).sum())} decisive")
+    if pred.shape != differ.shape or (differ & decisive).any():
+        raise AssertionError("ParallelPredictor labels differ from the single-device argmax")
+
+    # ---- 4. data-parallel train steps (float32, TF32 off)
+    def compact_batch(n, n_padded, shape, channels=1):
+        batch = {"image": np.zeros((n_padded,) + shape + (channels,), np.uint8),
+                 "binary": np.zeros((n_padded,) + shape, np.uint8),
+                 "mask": np.zeros((n_padded,) + shape, np.uint8),
+                 "dims": np.zeros((n_padded, 2), np.int32)}
+        for i, d in enumerate(prepared_pages.data[:n]):
+            h, w = d.image.shape
+            batch["image"][i, :h, :w] = d.image[..., None]
+            batch["binary"][i, :h, :w] = d.binary
+            batch["mask"][i, :h, :w] = layout_labels(i, h, w)
+            batch["dims"][i] = (h, w)
+        return batch
+
+    step_report = {}
+    with backend_flags("mesh: train step", {**NO_TF32, "cudnn.deterministic": True}):
+        fcn = FCNSkip(3).to(card)
+        fcn.load_state_dict(params_from_jax(variables))
+        kw = dict(device_preprocess=Architecture.FCN_SKIP.device_preprocess())
+        opt = Optimizers.ADAM.make(1e-3)
+        single_step, _ = make_step_fns(fcn, opt, ce_loss, **kw)
+        mesh_step, _ = make_step_fns(fcn, opt, ce_loss, mesh=mesh, **kw)
+        n_padded = -(-MESH_STEP_PAGES // MESH_SHARDS) * MESH_SHARDS
+        host = compact_batch(MESH_STEP_PAGES, n_padded, padded)
+        params = dict(fcn.named_parameters())
+        on_card = {k: torch.from_numpy(v[:MESH_STEP_PAGES]).to(card) for k, v in host.items()}
+        loss_s, grads_s = single_step.value_and_grad(params, {}, on_card)
+        _, (loss_m, grads_m) = counted("mesh_step", lambda: mesh_step.value_and_grad(params, {}, host))
+        opt_state = opt.init(params)
+        sharded = {k: [torch.from_numpy(c).to(card) for c in np.split(v, MESH_SHARDS)]
+                   for k, v in host.items()}
+        step_ms = {"mesh": cuda_ms(lambda: mesh_step(params, {}, opt_state, sharded), reps=5),
+                   "single": cuda_ms(lambda: single_step(params, {}, opt_state, on_card), reps=5)}
+        step_peak = peak_mib(lambda: mesh_step(params, {}, opt_state, sharded))
+        step_report["fcn_skip"] = {
+            "pages": MESH_STEP_PAGES, "padded_to": n_padded, "shape": list(padded),
+            "loss_rel": abs(float(loss_m) - float(loss_s)) / abs(float(loss_s)),
+            "grad_rel": rel(grads_m, grads_s), "ms_mesh": step_ms["mesh"],
+            "ms_single": step_ms["single"], "card_peak_mib": step_peak}
+
+        # mobile_net (BatchNorm averaged over the shards): the card's mesh step
+        # against the same mesh step on the CPU
+        arch = Architecture("mobile_net")
+        bn_shape = tuple(-(-v // arch.stride_factor) * arch.stride_factor for v in (out_h, out_w))
+        n_bn = -(-MESH_BN_PAGES // MESH_SHARDS) * MESH_SHARDS
+        bn_host = compact_batch(MESH_BN_PAGES, n_bn, bn_shape)
+        bn_host["image"] = np.repeat(bn_host["image"], 3, axis=-1)
+        start = params_from_jax(init_variables_numpy(arch.model(3), SEED))
+        got = {}
+        for where, devices in ((DEVICE, [card] * MESH_SHARDS), ("cpu", "cpu")):
+            net = arch.model(3)
+            net.load_state_dict(start)
+            net.to(card if where == DEVICE else "cpu")
+            bn_mesh = make_mesh(MESH_SHARDS, devices=devices)
+            step, _ = make_step_fns(net, Optimizers.ADAM.make(1e-3), ce_loss, mesh=bn_mesh,
+                                    device_preprocess=arch.device_preprocess())
+            name = "mesh_step_bn" if where == DEVICE else "mesh_step_bn_cpu"
+            _, (loss_value, g, new_s) = counted(name, lambda: step.value_and_grad(
+                dict(net.named_parameters()), dict(net.named_buffers()), bn_host, with_state=True))
+            got[where] = (float(loss_value), g, new_s)
+        (card_loss, card_g, card_s), (cpu_loss, cpu_g, cpu_s) = got[DEVICE], got["cpu"]
+        step_report["mobile_net"] = {
+            "pages": MESH_BN_PAGES, "padded_to": n_bn, "shape": list(bn_shape),
+            "loss_rel": abs(card_loss - cpu_loss) / abs(cpu_loss), "grad_rel": rel(card_g, cpu_g),
+            "batch_stats_rel": rel(card_s, cpu_s)}
+    report["train_step"] = step_report
+    fcn_r, bn_r = step_report["fcn_skip"], step_report["mobile_net"]
+    log(f"phase mesh, train step (float32, TF32 off): FCNSkip {MESH_STEP_PAGES} pages padded to "
+        f"{n_padded} over {MESH_SHARDS} shards vs one device: loss rel {fcn_r['loss_rel']:.3e}, "
+        f"gradients {fcn_r['grad_rel']:.3e} relative in norm; step {fcn_r['ms_mesh']:.3f} ms vs "
+        f"{fcn_r['ms_single']:.3f} ms, peak {fcn_r['card_peak_mib']:.1f} MiB; mobile_net "
+        f"{MESH_BN_PAGES} pages padded to {n_bn}, card mesh vs CPU mesh: loss rel "
+        f"{bn_r['loss_rel']:.3e}, gradients {bn_r['grad_rel']:.3e}, batch_stats {bn_r['batch_stats_rel']:.3e}")
+    if fcn_r["loss_rel"] > 1e-5 or fcn_r["grad_rel"] > 1e-3:
+        raise AssertionError(f"the data-parallel FCNSkip step disagrees: {fcn_r}")
+    if bn_r["loss_rel"] > 1e-5 or bn_r["grad_rel"] > 1e-3 or bn_r["batch_stats_rel"] > 1e-4:
+        raise AssertionError(f"the data-parallel mobile_net step disagrees: {bn_r}")
+
+    # ---- 5. Trainer(distributed=True) over a one-process group, versioned
+    # checkpoints, then auto_resume
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out = os.path.join(work, "mesh_train")
+    settings = train_settings._replace(
+        n_epoch=1, output_dir=out, distributed=True, checkpoint_backend="orbax", load=None,
+        evaluation_data=None, save_best_model_only=False, device=DEVICE)
+    distributed.initialize(f"127.0.0.1:{port}", 1, 0, device=DEVICE)
+    try:
+        reduced = torch.arange(4, dtype=torch.float32, device=card)
+        dist.all_reduce(reduced)
+        backend = dist.get_backend()
+        if backend != ("nccl" if card.type == "cuda" else "gloo") or reduced.tolist() != [0, 1, 2, 3]:
+            raise AssertionError(f"all_reduce over {backend} gave {reduced.tolist()}")
+        trainer = Trainer(settings)
+        if trainer.mesh.devices.size != 1 or trainer.mesh.process_count != 1:
+            raise AssertionError(f"distributed mesh {trainer.mesh}")
+        first_s, first = counted("mesh_train", trainer.train)
+        steps_after_first = OrbaxCheckpointer(os.path.join(out, "model_orbax")).all_steps()
+        resumed = Trainer(settings._replace(n_epoch=2, auto_resume=True))
+        resume_epoch = resumed._resume_meta and resumed._resume_meta.get("epoch")
+        second_s, second = counted("mesh_train_resumed", resumed.train)
+        steps = OrbaxCheckpointer(os.path.join(out, "model_orbax")).all_steps()
+    finally:
+        distributed.shutdown()
+    report["trainer"] = {"backend": backend, "pages": len(settings.train_data), "first_s": first_s,
+                         "resumed_s": second_s, "losses": first["loss"] + second["loss"],
+                         "steps_after_first": steps_after_first, "steps": steps,
+                         "resumed_from_epoch": resume_epoch}
+    log(f"phase mesh, trainer: distributed.initialize() at world size 1 over {backend}, all_reduce "
+        f"on the card; Trainer(distributed=True) 1 epoch of {len(settings.train_data)} pages in "
+        f"{first_s:.2f} s, versioned steps {steps_after_first}; auto_resume from epoch "
+        f"{resume_epoch} ran epoch 1 in {second_s:.2f} s, steps {steps}; losses "
+        f"{[round(v, 5) for v in first['loss'] + second['loss']]}")
+    if steps_after_first != [0] or resume_epoch != 0 or steps != [0, 1] or len(second["loss"]) != 1:
+        raise AssertionError(f"versioned checkpoints / auto_resume: {report['trainer']}")
+    if not np.isfinite(first["loss"] + second["loss"]).all():
+        raise AssertionError("non-finite training loss on the mesh")
+
+    for name, count in launches.items():
+        if name not in ("mesh_throughput", "throughput_no_mesh") and any(count.values()):
+            raise AssertionError(f"{name} launched kernels: {count}")
+    log("mesh: " + json.dumps(report))
+    return {"report": report, "launches": launches}
+
+
 def profiled(fn):
     """Run ``fn`` under torch.profiler: (wall µs, µs in which the device ran
     a kernel or a copy, device µs by event name, device event count)."""
@@ -2383,7 +2751,9 @@ def main(argv=None) -> int:
         serve = phase_serve(pages, corpus["model"])
         train = phase_train(pages, binaries, work)
         families = phase_families(pages, binaries, work)
-        train_families = phase_train_families(train.pop("trainer"), work)
+        trainer = train.pop("trainer")
+        train_families = phase_train_families(trainer, work)
+        mesh = phase_mesh(pages, binaries, corpus["model"], trainer.settings, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2434,7 +2804,8 @@ def main(argv=None) -> int:
                              "families_library": families["library_launches"],
                              "families_train": train_families["launches"]["cc_label"],
                              "segment": segment["launches"]["cc_label"],
-                             **{k: v["cc_label"] for k, v in option_launches.items()}},
+                             **{k: v["cc_label"] for k, v in option_launches.items()},
+                             "mesh_throughput": mesh["launches"]["mesh_throughput"]["cc_label"]},
         "tiled": kernel["tiled"],
     }, {
         "name": "add_one",
@@ -2449,7 +2820,8 @@ def main(argv=None) -> int:
                              "train": train["launches"]["add_one"], "families_throughput": 0,
                              "families_library": 0, "families_train": train_families["launches"]["add_one"],
                              "segment": segment["launches"]["add_one"],
-                             **{k: v["add_one"] for k, v in option_launches.items()}},
+                             **{k: v["add_one"] for k, v in option_launches.items()},
+                             "mesh_throughput": mesh["launches"]["mesh_throughput"]["add_one"]},
         "max_abs_err": add_one["max_abs_err"],
         "ms": add_one["ms"],
         "plain_ms": add_one["plain_ms"],

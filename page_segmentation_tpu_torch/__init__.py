@@ -18,7 +18,13 @@ streamer (``RawCorpusPredictor``), the batching HTTP service
 ``gen-masks`` and ``page-segmentation``).  The predict options: int8
 post-training quantization (``models/quant.py``), the space-to-depth stem
 (``models/s2d.py``), row bands of tall pages (``parallel/spatial.py``) and
-the ``torch.export`` artifact (``inference/aot.py``, ``AotClassifier``).  The training path (dataset JSON -> ``DatasetLoader`` ->
+the ``torch.export`` artifact (``inference/aot.py``, ``AotClassifier``).
+Several devices: row bands of one page across a device mesh with halo
+exchange (``parallel/spatial.py``), data-parallel predict
+(``ParallelPredictor``, ``ThroughputPredictor(mesh=...)``) and training
+(``Trainer(n_devices=...)``), one process driving several devices
+(``parallel/mesh.py`` ``make_mesh``) or several processes over
+``torch.distributed`` (``parallel/distributed.py``).  The training path (dataset JSON -> ``DatasetLoader`` ->
 ``Trainer`` -> checkpoints with the optimizer state, and the ``Network``
 facade) trains FCNSkip with cuDNN's convolutions through autograd.
 ``tools/repro_download.py`` checks that downloads come back whole under
@@ -61,6 +67,11 @@ _LAZY = {
     "cc_vote_batch": ("page_segmentation_tpu_torch.ops.cuda_cc", "cc_vote_batch"),
     "add_one": ("page_segmentation_tpu_torch.ops.cuda_add_one", "add_one"),
     "native": ("page_segmentation_tpu_torch.native", None),
+    "ParallelPredictor": ("page_segmentation_tpu_torch.parallel.executor", "ParallelPredictor"),
+    "make_mesh": ("page_segmentation_tpu_torch.parallel.mesh", "make_mesh"),
+    "spatial_predict": ("page_segmentation_tpu_torch.parallel.spatial", "spatial_predict"),
+    "banded_forward": ("page_segmentation_tpu_torch.parallel.spatial", "banded_forward"),
+    "distributed": ("page_segmentation_tpu_torch.parallel.distributed", None),
     "Trainer": ("page_segmentation_tpu_torch.train.trainer", "Trainer"),
     "TrainSettings": ("page_segmentation_tpu_torch.train.trainer", "TrainSettings"),
     "AugmentationSettings": ("page_segmentation_tpu_torch.train.trainer", "AugmentationSettings"),

@@ -21,11 +21,14 @@ defaults and error behaviour.  Ported subcommands:
 is given; ``page-segmentation`` uses the card only with ``--morph_backend
 device``; ``export`` exports one program per device of ``--platforms``
 (``cuda cpu`` by default).  ``predict`` and ``serve`` take ``--int8`` and
-``--s2d_stem``, ``predict`` also ``--band_rows``.  The options that are not
-ported (``--n_devices`` > 1 and ``train``'s ``--distributed``, ROADMAP queue 1
-item 12b; ``--checkpoint_backend orbax`` and ``--auto_resume``, item 11) keep
-their flags and exit with an error naming the item that ports them.  A bare
-invocation is ``predict``; a user error prints one line and returns 2.
+``--s2d_stem``, ``predict`` also ``--band_rows`` and ``--n_devices`` (pages
+above ``--spatial_threshold`` pixels split across a device mesh).  ``train``
+takes ``--n_devices`` (data-parallel over a mesh), ``--distributed`` (the
+mesh of every process: ``parallel/distributed.py`` ``initialize()`` reads
+the launcher's ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE`` and
+``RANK``), ``--checkpoint_backend orbax`` (step-versioned asynchronous
+checkpoints) and ``--auto_resume``.  A bare invocation is ``predict``; a
+user error prints one line and returns 2.
 
     python -m page_segmentation_tpu_torch.cli predict --device cpu --load MODEL \\
         --images DIR --binary DIR --char_height 14 --output OUT
@@ -190,14 +193,6 @@ def _predict_pipeline(args, color_map, entries) -> int:
 
 
 # --------------------------------------------------------------------- train
-_TRAIN_NOT_PORTED = (
-    (lambda a: a.distributed, "--distributed (multi-host training)", "12b"),
-    (lambda a: a.n_devices and a.n_devices > 1, "--n_devices > 1 (data-parallel training)", "12b"),
-    (lambda a: a.checkpoint_backend == "orbax", "--checkpoint_backend orbax", "11"),
-    (lambda a: a.auto_resume, "--auto_resume (Orbax checkpoints)", "11"),
-)
-
-
 def cmd_train(args) -> int:
     import math
 
@@ -206,9 +201,10 @@ def cmd_train(args) -> int:
     from ..train.metrics import Loss, Monitor
     from ..train.trainer import AugmentationSettings, Trainer, TrainSettings
 
-    for unported, what, item in _TRAIN_NOT_PORTED:
-        if unported(args):
-            raise NotImplementedError(f"{what} is not ported yet: ROADMAP queue 1 item {item}")
+    if args.distributed:
+        from ..parallel import distributed
+
+        distributed.initialize(device=args.device)
     color_map = _load_color_map(args.color_map)
     loader = DatasetLoader(args.target_line_height, color_map, max_width=args.max_width,
                            resize_backend=args.resize_backend)
@@ -263,6 +259,10 @@ def cmd_train(args) -> int:
         class_weighting=args.class_weighting,
         pretrained_encoder=args.pretrained_encoder,
         export_h5=args.export_h5,
+        auto_resume=args.auto_resume,
+        checkpoint_backend=args.checkpoint_backend,
+        n_devices=args.n_devices,
+        distributed=args.distributed,
         device=args.device,
     )
     trainer = Trainer(settings)
@@ -563,8 +563,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="space-to-depth rewrite of the full-resolution stem convs "
                         "(fcn/fcn_skip; same parameters, same arithmetic)")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="spatial partitioning over devices (not ported: ROADMAP queue 1 item 12b)")
-    p.add_argument("--spatial_threshold", type=int, default=16_000_000)
+                   help="split pages above --spatial_threshold pixels row-wise across this "
+                        "many devices, with receptive-field halos (exact)")
+    p.add_argument("--spatial_threshold", type=int, default=16_000_000,
+                   help="pixels of a prepared page above which spatial partitioning engages "
+                        "(with --n_devices > 1)")
     p.add_argument("--band_rows", type=int, default=None,
                    help="pages taller than this (plus the halo margins) forward in sequential "
                         "row bands with receptive-field halos: exact, and the peak device "
@@ -596,12 +599,19 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--early_stopping_max_performance_drops", type=int, default=30)
     for flag in ("--data_augmentation", "--balanced_sampling", "--device_augmentation",
                  "--export_h5", "--remat", "--foreground_masks", "--compute_baseline",
-                 "--tensorboard", "--continue_training", "--auto_resume", "--streaming",
-                 "--distributed"):
+                 "--tensorboard", "--continue_training", "--streaming"):
         t.add_argument(flag, action="store_true")
+    t.add_argument("--auto_resume", action="store_true",
+                   help="orbax backend: continue from the newest saved step")
+    t.add_argument("--distributed", action="store_true",
+                   help="train over the devices of every process: joins the process group "
+                        "(env: MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, as torchrun sets "
+                        "them; NCCL on the card, gloo with --device cpu)")
     t.add_argument("--balanced_sampling_strength", type=float, default=0.5)
     t.add_argument("--class_weighting", type=float, default=0.0)
-    t.add_argument("--checkpoint_backend", default="msgpack", choices=["msgpack", "orbax"])
+    t.add_argument("--checkpoint_backend", default="msgpack", choices=["msgpack", "orbax"],
+                   help="orbax: also keep step-versioned asynchronous checkpoints under "
+                        "<output>/<model_name>_orbax (the port's own layout)")
     t.add_argument("--load", default=None)
     t.add_argument("--pretrained_encoder", default=None)
     t.add_argument("--batch_size", type=int, default=1)
@@ -611,7 +621,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--lr_warmup_steps", type=int, default=0)
     t.add_argument("--lr_decay_steps", type=int, default=None)
     t.add_argument("--lr_min_fraction", type=float, default=0.0)
-    t.add_argument("--n_devices", type=int, default=None)
+    t.add_argument("--n_devices", type=int, default=None,
+                   help="data-parallel training over this many devices of one process")
     t.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     t.add_argument("--resize_backend", default="scipy", choices=["scipy", "pil"])
     t.add_argument("--display", type=int, default=100)

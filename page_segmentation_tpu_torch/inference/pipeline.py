@@ -17,6 +17,13 @@ device-to-host copy and builds its trio.
 (``models/quant.py``); the first dispatched batch calibrates it with one
 float32 forward of the calibrate twin (``make_fused_calibrate``), whose
 ranges then stay.
+
+With a ``mesh`` the batch pads with zero pages to a multiple of the mesh's
+``data`` axis and one chunk goes up to each device, through that device's
+own ``DeviceTransfers``; each device runs the whole fused program on its
+chunk with its copy of the module (``parallel/mesh.py`` ``replicas_of``),
+the CUDA labeler included, and its download starts on its own stream; the
+padding pages are dropped after the download.
 """
 from __future__ import annotations
 
@@ -101,6 +108,7 @@ def make_fused_predict(
     download: str = "color",
     cc_vote=False,
     mesh=None,
+    data_axis: str = "data",
     preprocess_mode: str = "gray",
     device="cuda",
 ):
@@ -114,26 +122,26 @@ def make_fused_predict(
     on the device: the fn then takes the 1-bit-packed ink mask (N, pad_h,
     pad_w // 8) and the CUDA labeler + histogram vote run before the
     download.  Both names route to the same kernel.  The module's own
-    weights are used; it is moved to ``device`` and put in eval mode."""
-    if mesh is not None:
-        raise NotImplementedError("mesh (multi-device data parallelism) is not ported yet: "
-                                  "ROADMAP queue 1 item 12b")
+    weights are used; it is moved to ``device`` and put in eval mode.
+
+    ``mesh`` runs the program data-parallel over its ``data_axis``: the fn
+    then takes and returns lists of per-device chunks (the module moves to
+    the axis's first device; every other device runs its copy)."""
     if download not in ("color", "pred", "packed"):
         raise ValueError(f"download must be 'color', 'pred' or 'packed', got {download!r}")
     cc_vote = "xla" if cc_vote is True else cc_vote
     if cc_vote not in (False, None, "xla", "pallas"):
         raise ValueError(f"cc_vote must be False, True, 'xla' or 'pallas', got {cc_vote!r}")
-    dev = resolve_device(device)
+    dev = mesh.axis_devices(data_axis)[0] if mesh is not None else resolve_device(device)
     out_h, out_w = normalized_shape
     pad_h = round_up(out_h, stride_factor * bucket_granularity)
     pad_w = round_up(out_w, stride_factor * bucket_granularity)
     normalize = _device_normalize(out_h, out_w, pad_h, pad_w, preprocess_mode)
     module.to(dev).eval()
 
-    @torch.inference_mode()
-    def fused(pages_u8, palette, ink_packed=None):
+    def core(net, pages_u8, palette, ink_packed=None):
         img = normalize(pages_u8)
-        logits = module.forward_nchw(img.to(compute_dtype))
+        logits = net.forward_nchw(img.to(compute_dtype))
         pred = logits.argmax(dim=1)
         if cc_vote:
             from ..ops.cuda_cc import cc_vote_batch
@@ -149,6 +157,21 @@ def make_fused_predict(
         if download == "pred":
             return pred.to(torch.uint8)
         return palette[pred.clamp(0, palette.shape[0] - 1)]
+
+    if mesh is None:
+        @torch.inference_mode()
+        def fused(pages_u8, palette, ink_packed=None):
+            return core(module, pages_u8, palette, ink_packed)
+    else:
+        from ..parallel.mesh import replicas_of
+
+        @torch.inference_mode()
+        def fused(pages_u8, palette, ink_packed=None):
+            # shards launched in turn; on several cards they overlap
+            replicas = replicas_of(module)
+            return [core(replicas.on(pages.device), pages, palette.to(pages.device),
+                         None if ink_packed is None else ink_packed[i])
+                    for i, pages in enumerate(pages_u8)]
 
     fused.valid_shape = (out_h, out_w)
     fused.padded_shape = (pad_h, pad_w)
@@ -241,6 +264,7 @@ class ThroughputPredictor:
         download: str = "color",
         cc_vote=False,
         mesh=None,
+        data_axis: str = "data",
         int8: bool = False,
         reuse_output_buffers: bool = False,
         preprocess_mode: str = "gray",
@@ -250,8 +274,14 @@ class ThroughputPredictor:
     ):
         if int8 and preprocess_mode != "gray":
             raise ValueError("int8 supports the grayscale FCN families only")
-        self.transfers = DeviceTransfers(device)
+        self.mesh = mesh
+        self.data_axis = data_axis
+        # mesh: the first device of the data axis holds the module; each
+        # device moves its own chunks
+        self.transfers = DeviceTransfers(
+            mesh.axis_devices(data_axis)[0] if mesh is not None else device)
         self.device = self.transfers.device
+        self._mesh_transfers = {self.device: self.transfers}
         in_h, in_w = page_shape
         self.host_decimate = host_decimate
         # default vote placement: the native host vote inside the overlapped
@@ -299,8 +329,8 @@ class ThroughputPredictor:
         self.fused = make_fused_predict(
             module, (out_h, out_w), stride_factor=stride_factor,
             compute_dtype=compute_dtype, download=self.download,
-            cc_vote=device_vote, mesh=mesh, preprocess_mode=preprocess_mode,
-            device=self.device,
+            cc_vote=device_vote, mesh=mesh, data_axis=data_axis,
+            preprocess_mode=preprocess_mode, device=self.device,
         )
         self.palette_np = np.asarray(palette, np.uint8)
         self.palette_dev = torch.as_tensor(self.palette_np, device=self.device)
@@ -325,6 +355,42 @@ class ThroughputPredictor:
         amax_from_jax(self._int8_twin, value)
         self._amax = value
 
+    # --------------------------------------------------------- device moves
+    def _transfers_on(self, device) -> DeviceTransfers:
+        if device not in self._mesh_transfers:
+            self._mesh_transfers[device] = DeviceTransfers(device)
+        return self._mesh_transfers[device]
+
+    def _put(self, arr: np.ndarray):
+        """Start the upload of a host batch; with a mesh it pads to a
+        multiple of the data axis (zero pages, dropped in _finish) and each
+        device's chunk goes up through its own transfers."""
+        if self.mesh is None:
+            return self.transfers.put(arr)
+        from ..parallel.mesh import shard_batch
+
+        devices = self.mesh.axis_devices(self.data_axis)
+        pad = (-arr.shape[0]) % len(devices)
+        if pad:
+            arr = np.concatenate([arr, np.zeros((pad,) + arr.shape[1:], arr.dtype)])
+        return shard_batch(self.mesh, {"x": arr}, self.data_axis,
+                           put=lambda piece, d: self._transfers_on(d).put(piece))["x"]
+
+    def _take(self, staged):
+        if isinstance(staged, list):
+            return [self._transfers_on(s.tensor.device).take(s) for s in staged]
+        return self.transfers.take(staged)
+
+    def _start_download(self, out):
+        if isinstance(out, list):
+            return [self._transfers_on(o.device).start_download(o) for o in out]
+        return self.transfers.start_download(out)
+
+    def _wait_download(self, download) -> np.ndarray:
+        if isinstance(download, list):
+            return np.concatenate([DeviceTransfers.wait_download(d) for d in download])
+        return DeviceTransfers.wait_download(download)
+
     # ------------------------------------------------------------ host steps
     def _gather_ink_bits(self, packed: np.ndarray) -> np.ndarray:
         """Ink mask from bit-packed binaries (N, H, ceil(W/8)): ink = bit 0
@@ -339,9 +405,9 @@ class ThroughputPredictor:
 
         dec = native.decimate_u8(pages, self.host_decimate)
         if self.packed_binary:
-            return self.transfers.put(dec), self._gather_ink_bits(binaries)
+            return self._put(dec), self._gather_ink_bits(binaries)
         ink = native.gather_ink(binaries, self.row_idx, self.col_idx)
-        return self.transfers.put(dec), ink.astype(bool)
+        return self._put(dec), ink.astype(bool)
 
     def _out_bufs(self, n: int, h: int, w: int):
         """Ring of trio buffers sized to the in-flight window (depth + the
@@ -378,6 +444,7 @@ class ThroughputPredictor:
         from .. import native
         from .output import finish_mask_trio, unpack_classes
 
+        downloaded = downloaded[: ink.shape[0]]  # drop the mesh's padding pages
         h, w = ink.shape[1:]
         if self.download == "packed":
             if self.yield_pred:
@@ -418,10 +485,12 @@ class ThroughputPredictor:
 
     def _dispatch(self, prepared) -> torch.Tensor:
         dec, _, ink_staged = prepared
-        take = self.transfers.take
+        take = self._take
         pages = take(dec)
         if self._calibrate_fn is not None and self._amax is None:
-            self.amax = self._calibrate_fn(pages)
+            whole = (torch.cat([p.to(self.device) for p in pages]) if isinstance(pages, list)
+                     else pages)
+            self.amax = self._calibrate_fn(whole)
         if ink_staged is not None:
             return self.fused(pages, self.palette_dev, take(ink_staged))
         return self.fused(pages, self.palette_dev)
@@ -429,7 +498,7 @@ class ThroughputPredictor:
     def _download_finish(self, download, ink: np.ndarray):
         """Wait for the copy's event, then build the host trio; runs on the
         downloader thread in run()."""
-        return self._finish(self.transfers.wait_download(download), ink)
+        return self._finish(self._wait_download(download), ink)
 
     # -------------------------------------------------------------- pipeline
     # run() pipelines a whole corpus internally; a serving engine pipelines
@@ -440,7 +509,7 @@ class ThroughputPredictor:
         another thread than execute_batch."""
         vote = self.cc_vote in ("xla", "pallas")
         dec, ink = self._prep(pages, binaries)
-        ink_staged = self.transfers.put(self._pack_ink(ink)) if vote else None
+        ink_staged = self._put(self._pack_ink(ink)) if vote else None
         return dec, ink, ink_staged
 
     def prep_pages(self, pages, binaries, n_pad: int):
@@ -458,14 +527,14 @@ class ThroughputPredictor:
                 ink[i] = self._gather_ink_bits(binary[None])[0]
             else:
                 ink[i] = native.gather_ink(binary[None], self.row_idx, self.col_idx)[0]
-        ink_staged = self.transfers.put(self._pack_ink(ink)) if vote else None
-        return self.transfers.put(dec), ink, ink_staged
+        ink_staged = self._put(self._pack_ink(ink)) if vote else None
+        return self._put(dec), ink, ink_staged
 
     def execute_batch(self, prepared):
         """Stage 2, device + finish: dispatch, download, host vote/trio.
         Returns what one run() iteration would yield."""
         out = self._dispatch(prepared)
-        return self._download_finish(self.transfers.start_download(out), prepared[1])
+        return self._download_finish(self._start_download(out), prepared[1])
 
     def run(self, pages: np.ndarray, binaries: np.ndarray, batch_size: int = 16,
             depth: int = 2):
@@ -500,7 +569,7 @@ class ThroughputPredictor:
                 prepared = next_prep.result()
                 if index + 1 < len(starts):
                     next_prep = prefetch.submit(prep, starts[index + 1])
-                download = self.transfers.start_download(self._dispatch(prepared))
+                download = self._start_download(self._dispatch(prepared))
                 pending.append(
                     downloader.submit(self._download_finish, download, prepared[1])
                 )

@@ -8,7 +8,12 @@ batch through ``PixelClassifier.predict_batch_masks`` (with the device
 cc-vote when the lone post-processor is the cc-majority vote) and yields
 ``(data, pred, color, overlay, inverted)`` per page.  With
 ``PredictSettings.band_rows`` a page taller than one band window forwards
-in sequential row bands (``parallel/spatial.py`` ``banded_forward``).
+in sequential row bands (``parallel/spatial.py`` ``banded_forward``); with
+``n_devices > 1`` a page above ``spatial_threshold`` pixels forwards as row
+bands across a device mesh with receptive-field halos
+(``parallel/spatial.py`` ``spatial_forward``; the CPU counts as
+``n_devices`` devices when the network runs there).  Both are exact, and
+neither applies to EfficientNet, whose squeeze-excite pools over the page.
 """
 from __future__ import annotations
 
@@ -53,8 +58,8 @@ class PredictSettings:
     # int8 post-training quantization of the batched path (models/quant.py;
     # fcn/fcn_skip), calibrated on the first batch; predict_single stays float
     int8: bool = False
-    # spatial partitioning over several devices: not ported (ROADMAP queue 1
-    # item 12b)
+    # n_devices > 1: pages above spatial_threshold pixels forward as row bands
+    # across a device mesh with receptive-field halos (parallel/spatial.py)
     n_devices: Optional[int] = None
     spatial_threshold: int = 16_000_000
     # pages taller than band_rows + 2 * margin forward in sequential row
@@ -66,10 +71,6 @@ class PredictSettings:
 class Predictor:
     def __init__(self, settings: PredictSettings, network: Optional[PixelClassifier] = None,
                  device="cuda"):
-        if settings.n_devices and settings.n_devices > 1:
-            raise NotImplementedError(
-                "n_devices > 1 (spatial partitioning) is not ported yet: "
-                "ROADMAP queue 1 item 12b")
         self.settings = settings
         self.network = network
         if not network:
@@ -85,6 +86,12 @@ class Predictor:
         if settings.output:
             for category in ("overlay", "color", "inverted"):
                 os.makedirs(os.path.join(settings.output, category), exist_ok=True)
+        self._spatial_mesh = None
+        if settings.n_devices and settings.n_devices > 1:
+            from ..parallel.mesh import make_mesh
+
+            on_cpu = self.network.device.type == "cpu"
+            self._spatial_mesh = make_mesh(settings.n_devices, devices="cpu" if on_cpu else None)
 
     def predict(self, dataset: Dataset) -> Generator[Prediction, None, None]:
         for data in dataset.data:
@@ -97,6 +104,29 @@ class Predictor:
         image = gray_to_rgb(data.image) if net.rgb else data.image
         arr = np.asarray(net.preprocess(np.asarray(image, np.float32)), np.float32)
         return arr[..., None] if arr.ndim == 2 else arr
+
+    def _use_spatial(self, data: SingleData) -> bool:
+        """Split a page across the mesh only where banding is exact (not
+        EfficientNet) and the page has more than ``spatial_threshold``
+        pixels."""
+        from ..parallel.spatial import DEFAULT_MARGINS
+
+        if self._spatial_mesh is None or self.network.architecture.value not in DEFAULT_MARGINS:
+            return False
+        h, w = data.image.shape[:2]
+        return h * w > self.settings.spatial_threshold
+
+    def _spatial_single_data(self, data: SingleData):
+        """(logit, prob, pred) of one page split row-wise across the mesh."""
+        from scipy.special import softmax
+
+        from ..parallel.spatial import DEFAULT_MARGINS, spatial_forward
+
+        net = self.network
+        logit = spatial_forward(net.module, self._preprocessed_hwc(data), self._spatial_mesh,
+                                margin=DEFAULT_MARGINS[net.architecture.value],
+                                stride_factor=net.architecture.stride_factor)
+        return logit, softmax(logit, -1), np.argmax(logit, -1)
 
     def _use_banded(self, data: SingleData) -> bool:
         """Band a page only where banding is exact (not EfficientNet: its
@@ -124,7 +154,9 @@ class Predictor:
 
     def predict_single(self, data: SingleData) -> Prediction:
         data = materialize([data])[0]  # a lazy entry -> a loaded copy
-        if self._use_banded(data):
+        if self._use_spatial(data):
+            _, prob, pred = self._spatial_single_data(data)
+        elif self._use_banded(data):
             _, prob, pred = self._banded_single_data(data)
         else:
             _, prob, pred = self.network.predict_single_data(data)

@@ -15,9 +15,15 @@ the page edges, the first starting at the page's top row and the last ending
 at its bottom row.  Margins and bands are multiples of the stride factor, so
 the pooling grids align across the split.
 
-The multi-device forms (``spatial_forward``, ``spatial_forward_batch``,
-``spatial_predict``: bands across a device mesh with halo exchange) are not
-ported yet.
+Across a device mesh (``spatial_forward``, ``spatial_forward_batch``,
+``spatial_predict``) each device holds one band of ``band_h`` rows and
+evaluates a ``band_h + 2 * margin`` window of real rows: its own band plus
+halos, the neighbours' ``2 * margin`` edge rows, copied device to device
+(``tensor.to(neighbour, non_blocking=True)``, a peer copy between cards).
+The window starts at offset 0 at the top, ``2 * margin`` at the bottom and
+``margin`` in between, as the JAX package's ``shard_map`` program does.
+Each device runs the module's copy on that device
+(``parallel/mesh.py`` ``replicas_of``).
 """
 from __future__ import annotations
 
@@ -41,10 +47,6 @@ DEFAULT_MARGINS = {
     "mobile_net": 64,
     "image_res_net": 192,
 }
-
-_NOT_PORTED = ("spatial partitioning over several devices is not ported yet: "
-               "ROADMAP queue 1 item 12b")
-
 
 def _forward(module, window: np.ndarray) -> np.ndarray:
     """One (H, W, C) float32 window through ``module`` on its own device:
@@ -115,18 +117,111 @@ def banded_forward(module, image: np.ndarray, band_rows: int = 1024, margin: int
     return out[:h, :w]
 
 
-def spatial_forward(module, image, mesh=None, margin: int = 96, axis: str = "data",
-                    stride_factor: int = 8):
-    """One page split row-wise across a device mesh: not ported yet."""
-    raise NotImplementedError(_NOT_PORTED)
+def _spatial_run(module, bands, margin: int):
+    """The band program over one row of devices: ``bands`` are (N, band_h,
+    W, C) float32 tensors, one per device, top to bottom.  Returns each
+    band's logits (N, band_h, W, n_classes), on its device."""
+    from .mesh import replicas_of
+
+    n_dev = len(bands)
+    if n_dev == 1:
+        # no split: a halo ring would wrap the band onto itself
+        with torch.inference_mode():
+            return [replicas_of(module).on(bands[0].device)(bands[0])]
+    devices = [band.device for band in bands]
+    # halos: the band above's bottom 2*margin rows, the band below's top
+    # 2*margin rows, copied to this band's device
+    above2 = [bands[i - 1][:, -2 * margin :].to(devices[i], non_blocking=True) if i > 0 else None
+              for i in range(n_dev)]
+    below2 = [bands[i + 1][:, : 2 * margin].to(devices[i], non_blocking=True)
+              if i < n_dev - 1 else None for i in range(n_dev)]
+    out = []
+    with torch.inference_mode():
+        for i, band in enumerate(bands):
+            if i == 0:
+                window, offset = torch.cat([band, below2[i]], dim=1), 0
+            elif i == n_dev - 1:
+                window, offset = torch.cat([above2[i], band], dim=1), 2 * margin
+            else:
+                window = torch.cat([above2[i][:, margin:], band, below2[i][:, :margin]], dim=1)
+                offset = margin
+            logits = replicas_of(module).on(devices[i])(window)
+            out.append(logits[:, offset : offset + band.shape[1]])
+    return out
 
 
-def spatial_forward_batch(module, pages, mesh=None, margin: int = 96, data_axis: str = "data",
-                          space_axis: str = "space", stride_factor: int = 8):
-    """Pages x bands over a 2-D device mesh: not ported yet."""
-    raise NotImplementedError(_NOT_PORTED)
+def _band_height(padded_h: int, n_space: int, margin: int, advice: str) -> int:
+    band_h = padded_h // n_space
+    if n_space != 1 and band_h < 2 * margin:
+        raise ValueError(f"band height {band_h} smaller than 2x halo margin {margin}; {advice}")
+    return band_h
 
 
-def spatial_predict(classifier, image, mesh=None, margin: Optional[int] = None):
-    """argmax of one oversized page across a device mesh: not ported yet."""
-    raise NotImplementedError(_NOT_PORTED)
+def spatial_forward(module, image: np.ndarray, mesh, margin: int = 96, axis: str = "data",
+                    stride_factor: int = 8) -> np.ndarray:
+    """Logits (H, W, n_classes) of one (H, W[, C]) page split row-wise
+    across every device of ``mesh``.  H is padded to ``n_devices *
+    stride_factor`` (W to the stride factor) and cropped back."""
+    devices = list(mesh.devices.flat)
+    n_dev = len(devices)
+    margin = round_up(margin, stride_factor)
+    h, w = image.shape[:2]
+    c = image.shape[2] if image.ndim == 3 else 1
+    padded_h = round_up(h, n_dev * stride_factor)
+    padded_w = round_up(w, stride_factor)
+    full = np.zeros((padded_h, padded_w, c), np.float32)
+    full[:h, :w] = np.asarray(image, np.float32).reshape(h, w, c)
+    band_h = _band_height(padded_h, n_dev, margin, "use fewer devices or a taller page")
+    bands = [torch.from_numpy(full[None, i * band_h : (i + 1) * band_h]).to(d, non_blocking=True)
+             for i, d in enumerate(devices)]
+    logits = _spatial_run(module, bands, margin)
+    return np.concatenate([out[0].float().cpu().numpy() for out in logits])[:h, :w]
+
+
+def spatial_forward_batch(module, pages: np.ndarray, mesh, margin: int = 96,
+                          data_axis: str = "data", space_axis: str = "space",
+                          stride_factor: int = 8) -> np.ndarray:
+    """Logits (N, H, W, n_classes) of a batch of same-sized pages over a 2-D
+    (pages x bands) mesh: the batch splits across ``data_axis`` and every
+    page's rows across ``space_axis``, with the halo scheme of
+    :func:`spatial_forward`.  A ragged batch pads with zero pages."""
+    grid = np.moveaxis(mesh.devices, [mesh.axis_names.index(data_axis),
+                                      mesh.axis_names.index(space_axis)], [0, 1])
+    grid = grid.reshape(grid.shape[0], grid.shape[1], -1)[..., 0]
+    n_data, n_space = grid.shape
+    margin = round_up(margin, stride_factor)
+    n, h, w = pages.shape[:3]
+    c = pages.shape[3] if pages.ndim == 4 else 1
+    padded_n = round_up(n, n_data)
+    padded_h = round_up(h, n_space * stride_factor)
+    padded_w = round_up(w, stride_factor)
+    full = np.zeros((padded_n, padded_h, padded_w, c), np.float32)
+    full[:n, :h, :w] = np.asarray(pages, np.float32).reshape(n, h, w, c)
+    band_h = _band_height(padded_h, n_space, margin,
+                          "use fewer space-axis devices or taller pages")
+    per = padded_n // n_data
+    rows = []
+    for i in range(n_data):
+        chunk = full[i * per : (i + 1) * per]
+        bands = [torch.from_numpy(chunk[:, j * band_h : (j + 1) * band_h]).to(grid[i, j],
+                                                                              non_blocking=True)
+                 for j in range(n_space)]
+        rows.append(_spatial_run(module, bands, margin))
+    logits = np.concatenate([np.concatenate([b.float().cpu().numpy() for b in row], axis=1)
+                             for row in rows])
+    return logits[:n, :h, :w]
+
+
+def spatial_predict(classifier, image: np.ndarray, mesh, margin: Optional[int] = None):
+    """argmax labels (H, W) of one oversized page, forwarded across ``mesh``
+    (a gray page repeated to 3 channels for the RGB families)."""
+    from ..utils import gray_to_rgb
+
+    margin = margin or DEFAULT_MARGINS.get(classifier.architecture.value, 192)
+    image = gray_to_rgb(image) if classifier.rgb else image
+    arr = np.asarray(classifier.preprocess(np.asarray(image, np.float32)), np.float32)
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    logits = spatial_forward(classifier.module, arr, mesh, margin=margin,
+                             stride_factor=classifier.architecture.stride_factor)
+    return logits.argmax(-1)

@@ -21,14 +21,18 @@ name, row-major bytes); 2: a complex as (real, imag); 3: a numpy scalar,
 packed as an ndarray), plus flax's chunked form of arrays over 1 GiB.  numpy
 has no bfloat16, so a bfloat16 array comes back widened exactly to float32.
 ``train/optim.py`` maps the optimizer state to and from optax's state dict.
-The JAX package's Orbax checkpointer is not ported (ROADMAP queue 1 item 11):
-:class:`OrbaxCheckpointer` raises.
+:class:`OrbaxCheckpointer` is the counterpart of the JAX package's
+asynchronous, step-versioned Orbax checkpoints, in a layout of its own: one
+such checkpoint directory per step.
 """
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import struct
+import threading
+import uuid
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -356,10 +360,103 @@ def load_meta(path: str) -> Dict[str, Any]:
 
 
 class OrbaxCheckpointer:
-    """The JAX package's async, versioned Orbax checkpoints: not ported (the
-    card's machine has no orbax)."""
+    """Asynchronous, step-versioned training-state checkpoints: the
+    counterpart of the JAX package's Orbax checkpointer (``save``,
+    ``restore``, ``wait``, ``close``), in the port's own layout, since the
+    card's machine has no orbax.  It cannot read the JAX package's Orbax
+    (tensorstore) directories, nor that package read its.
+
+        <directory>/<step>/params.msgpack     the variables (flax's msgpack)
+        <directory>/<step>/opt_state.msgpack  the optimizer state, when saved
+        <directory>/<step>/meta.json          the training loop's meta
+
+    Each step is a :func:`save_checkpoint` directory, so either package's
+    ``load_checkpoint`` reads it.  ``save`` copies the state on the caller's
+    thread and writes it from a background thread into a temporary name,
+    renamed to the step's name when complete (atomic); then the oldest steps
+    beyond ``max_to_keep`` are removed.
+    """
 
     def __init__(self, directory: str, max_to_keep: int = 3):
-        raise NotImplementedError(
-            "Orbax checkpoints (checkpoint_backend='orbax', auto_resume) are not ported yet: "
-            "ROADMAP queue 1 item 11")
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+        self._pending: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def all_steps(self):
+        """The saved steps, oldest first."""
+        return sorted(int(name) for name in os.listdir(self.directory) if name.isdigit())
+
+    def latest_step(self) -> Optional[int]:
+        self.wait()
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, variables, opt_state=None, meta: Optional[Dict] = None) -> None:
+        """Start writing ``variables`` (and ``opt_state``, a state dict) as
+        ``step``; a save still in flight finishes first."""
+        self.wait()
+        variables = _copied(dict(variables))
+        opt_state = _copied(opt_state) if opt_state is not None else None
+        meta = json.loads(json.dumps(meta or {}, default=str))
+
+        final = os.path.join(self.directory, str(int(step)))
+        tmp = os.path.join(self.directory, f".{int(step)}.tmp-{uuid.uuid4().hex}")
+
+        def write():
+            try:
+                save_checkpoint(tmp, variables, meta=meta, opt_state=opt_state)
+                if os.path.exists(final):
+                    shutil.rmtree(final)
+                os.rename(tmp, final)
+                for old in self.all_steps()[: -self.max_to_keep] if self.max_to_keep else []:
+                    shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
+            except BaseException as exc:  # raised by the next wait()
+                shutil.rmtree(tmp, ignore_errors=True)
+                self._error = exc
+
+        self._pending = threading.Thread(target=write, name="checkpoint-writer", daemon=True)
+        self._pending.start()
+
+    def restore(self, step: Optional[int] = None):
+        """``(step, state, meta)`` of ``step`` (default: the newest), with
+        ``state`` = ``{"variables": ..., "opt_state": ...}`` (no
+        ``opt_state`` when none was saved); None without any step."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None
+        self.wait()
+        path = os.path.join(self.directory, str(int(step)))
+        variables, meta = load_checkpoint(path)
+        state = {"variables": variables}
+        opt_state = load_opt_state(path)
+        if opt_state is not None:
+            state["opt_state"] = opt_state
+        return int(step), state, meta
+
+    def wait(self) -> None:
+        """Block until the save in flight is on disk; raise its error."""
+        if self._pending is not None:
+            self._pending.join()
+            self._pending = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
+
+    def close(self) -> None:
+        self.wait()
+
+
+def _copied(tree):
+    """A deep copy of a tree of arrays/tensors as numpy, safe from later
+    in-place updates of the training state."""
+    if isinstance(tree, dict):
+        return {k: _copied(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_copied(v) for v in tree)
+    if tree is None:
+        return None
+    if hasattr(tree, "detach"):
+        tree = tree.detach().cpu().numpy()
+    return np.array(tree, copy=True)

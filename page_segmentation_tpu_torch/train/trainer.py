@@ -28,6 +28,21 @@ fresh run starts from ``PixelClassifier``'s weights
 package start both from one checkpoint (``load``).  ``pretrained_encoder``
 loads an encoder from a Keras ``.h5`` or a provisioned encoder directory;
 ``export_h5`` writes a Keras ``.h5`` beside each checkpoint (h5py).
+
+Several devices, as in the JAX trainer: ``n_devices > 1`` trains
+data-parallel over an in-process mesh (``parallel/mesh.py``; the CPU counts
+as that many devices when ``device="cpu"``), ``distributed`` over the mesh
+of every process (``parallel/distributed.py``, after ``initialize()``).
+Batches pad to a multiple of the mesh with zero pages of weight 0.  Across
+processes every process loads the same dataset and keeps its strided
+shard, padded by wrapping to equal length, and every batch takes one bucket
+shape, the dataset's largest, so the processes' steps stay in lockstep;
+only process 0 writes scalars, diagnostics and checkpoints.
+``checkpoint_backend="orbax"`` also writes the step-versioned asynchronous
+checkpoints of ``train/checkpoint.py`` ``OrbaxCheckpointer`` under
+``<output_dir>/<model_name>_orbax``, and ``auto_resume`` continues from its
+newest step: weights, BatchNorm statistics, optimizer state and the loop's
+counters.
 """
 from __future__ import annotations
 
@@ -124,14 +139,15 @@ class TrainSettings(NamedTuple):
     batch_size: int = 1
     bucket_granularity: int = 1
     compute_dtype: str = "float32"
-    n_devices: Optional[int] = None  # > 1: ROADMAP queue 1 item 12b
+    n_devices: Optional[int] = None  # data-parallel mesh size (None = one device)
     seed: int = 0
-    checkpoint_backend: str = "msgpack"  # "orbax": ROADMAP queue 1 item 11
+    checkpoint_backend: str = "msgpack"  # or "orbax" (asynchronous, step-versioned)
     device_augmentation: bool = False  # the affine on the device
     remat: bool = False  # recompute the forward in the backward pass
-    auto_resume: bool = False  # Orbax only: ROADMAP queue 1 item 11
+    auto_resume: bool = False  # orbax backend: continue from the newest step
     pretrained_encoder: Optional[str] = None  # a backbone .h5 or encoder directory
-    distributed: bool = False  # ROADMAP queue 1 item 12b
+    # the mesh of every process; call parallel.distributed.initialize() first
+    distributed: bool = False
     # uint8 pixels and masks plus valid dims, normalized on the device
     compact_transfer: bool = True
     export_h5: bool = False  # also write <model_name>.h5 with each checkpoint
@@ -165,22 +181,37 @@ def _weighted_means(weighted_metrics) -> dict:
     }
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP queue 1 item {item}")
+class _NullLogger:
+    """The scalar logger of a process that does not write (process > 0)."""
+
+    def log(self, **record) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 class Trainer:
     def __init__(self, settings: TrainSettings):
         self.settings = s = settings
         self._class_weight_cache = {}
-        if s.distributed or (s.n_devices and s.n_devices > 1):
-            raise _not_ported("training over several devices (distributed, n_devices > 1)", "12b")
-        if s.checkpoint_backend == "orbax" or s.auto_resume:
-            from .checkpoint import OrbaxCheckpointer
+        self._orbax = None  # the versioned checkpointer, made at its first use
 
-            OrbaxCheckpointer(os.path.join(s.output_dir, s.model_name + "_orbax"))
+        self.mesh = None
+        self._multi_host = False
+        self._forced_bucket = None
+        if s.distributed:
+            from ..parallel import distributed
 
-        self.device = resolve_device(s.device)
+            self.mesh = distributed.global_mesh()
+            self._multi_host = distributed.process_count() > 1
+        elif s.n_devices and s.n_devices > 1:
+            from ..parallel.mesh import make_mesh
+
+            on_cpu = resolve_device(s.device).type == "cpu"
+            self.mesh = make_mesh(s.n_devices, devices="cpu" if on_cpu else None)
+        self.device = (self.mesh.local_devices[0] if self.mesh is not None
+                       else resolve_device(s.device))
         dtype = torch.bfloat16 if s.compute_dtype == "bfloat16" else torch.float32
         self.module = s.architecture.model(s.n_classes, dtype=dtype).to(self.device)
         self.preprocess, self.rgb = s.architecture.preprocess()
@@ -257,6 +288,12 @@ class Trainer:
                     f"(epoch {meta.get('epoch')}, lr {meta.get('lr', meta.get('l_rate'))})"
                 )
 
+        if s.auto_resume and s.checkpoint_backend == "orbax":
+            self._try_orbax_resume()
+
+        if self._multi_host:
+            self._shard_for_processes()
+
         # device augmentation warps float images; the compact uint8 layout
         # serves the other paths
         self._compact = s.compact_transfer and not (s.data_augmentation and s.device_augmentation)
@@ -275,12 +312,13 @@ class Trainer:
         self._class_weights = class_weights
 
         self._train_step, self._eval_step = make_step_fns(
-            self.module, self.optimizer, self.loss_fn, remat=s.remat,
+            self.module, self.optimizer, self.loss_fn, mesh=self.mesh, remat=s.remat,
             device_preprocess=s.architecture.device_preprocess(),
             skip_nonfinite=s.skip_nonfinite > 0,
             class_weights=class_weights,
         )
         self._transfers = DeviceTransfers(self.device)
+        self._mesh_transfers = {self.device: self._transfers}  # per device of the mesh
         # per epoch: pages, train_s (steps, prefetch overlapped), eval_s, save_s
         self.timings: List[dict] = []
 
@@ -289,6 +327,55 @@ class Trainer:
 
         if s.compute_baseline:
             self._log_baseline()
+
+    # ------------------------------------------------------------- resume
+    def _try_orbax_resume(self) -> None:
+        """Continue from the newest step of the versioned checkpoints if the
+        directory has one: weights, BatchNorm statistics, optimizer state
+        and the loop counters (epoch, lr, best monitor value, early-stop
+        wait)."""
+        from .checkpoint import OrbaxCheckpointer
+
+        s = self.settings
+        directory = os.path.join(s.output_dir, s.model_name + "_orbax")
+        if not os.path.isdir(directory):
+            return
+        self._orbax = OrbaxCheckpointer(directory)
+        restored = self._orbax.restore()
+        if restored is None:
+            return
+        step, state, meta = restored
+        variables = state["variables"]
+        self.params = variables["params"]
+        self.model_state = {k: v for k, v in variables.items() if k != "params"}
+        if "opt_state" in state:
+            self.opt_state = self.optimizer.load_state_dict(state["opt_state"], self.device)
+        self._resume_meta = dict(meta or {})
+        self._resume_meta.setdefault("epoch", step)
+        logger.info(f"Auto-resumed from step {step} in {directory}")
+
+    def _shard_for_processes(self) -> None:
+        """Lockstep across processes: every process must take the same
+        number of identically shaped steps per epoch, or the collectives
+        deadlock.  So one bucket shape serves the whole (global) dataset,
+        and each process keeps its strided shard, the short ones wrapped
+        round their own pages to equal length."""
+        from ..parallel import distributed
+
+        s = self.settings
+        shapes = [bucket_shape(_entry_shape(d), s.architecture.stride_factor, s.bucket_granularity)
+                  for d in s.train_data.data]
+        self._forced_bucket = (max(h for h, _ in shapes), max(w for _, w in shapes))
+        shard = distributed.local_shard(s.train_data.data)
+        if not shard:
+            raise Exception(
+                f"dataset has {len(s.train_data.data)} pages for "
+                f"{distributed.process_count()} processes; every process needs at least one"
+            )
+        target_len = math.ceil(len(s.train_data.data) / distributed.process_count())
+        while len(shard) < target_len:  # strided shards differ by <= 1
+            shard.append(shard[0])
+        self.settings = s._replace(train_data=Dataset(shard, s.train_data.color_map))
 
     # ------------------------------------------------------------- weights
     @property
@@ -365,7 +452,8 @@ class Trainer:
         """A host batch of numpy arrays, padded to the largest bucket."""
         s = self.settings
         samples = _materialize(samples)  # lazy entries load here
-        target = (0, 0)
+        # across processes every batch takes the dataset's largest bucket
+        target = self._forced_bucket or (0, 0)
         prepared = []
         for d in samples:
             image, binary, mask = d.image, d.binary, d.mask
@@ -429,16 +517,55 @@ class Trainer:
                 batch["binary"][i] = pad_to(binary.astype(np.uint8), target)
                 batch["mask"][i] = pad_to(mask.astype(np.int32), target)
                 batch["weights"][i, :h, :w] = 1.0
-        if self._class_weights is not None:
+        if self._class_weights is not None and self.mesh is None:
+            # a mesh step takes the weights from make_step_fns instead: every
+            # key of its batch is split over the shards
             batch["class_weights"] = self._class_weights
         return batch
 
+    def _pad_for_mesh(self, batch, n_dev: Optional[int] = None):
+        """Pad the batch dimension to a multiple of ``n_dev`` (default: the
+        mesh's data axis); the zero rows carry weight 0, so they add nothing
+        to the weighted objectives."""
+        n_dev = n_dev or len(self.mesh.axis_devices("data"))
+        n = batch["image"].shape[0]
+        if n % n_dev == 0:
+            return batch
+        pad_n = n_dev - n % n_dev
+        for key, arr in batch.items():
+            batch[key] = np.concatenate([arr, np.zeros((pad_n,) + arr.shape[1:], arr.dtype)])
+        return batch
+
+    def _transfers_on(self, device) -> "DeviceTransfers":
+        from ..inference.pipeline import DeviceTransfers
+
+        if device not in self._mesh_transfers:
+            self._mesh_transfers[device] = DeviceTransfers(device)
+        return self._mesh_transfers[device]
+
+    def _put(self, arr, device):
+        return self._transfers_on(device).put(arr)
+
     def _place_batch(self, batch):
-        """Start the upload of a host batch (pinned memory, side stream)."""
+        """Start the upload of a host batch (pinned memory, side stream): one
+        piece per device of the mesh, or the whole batch on one device."""
+        if self._multi_host:
+            from ..parallel import distributed
+
+            # the local rows tile the local devices; padded rows weigh 0
+            local = self._pad_for_mesh(batch, n_dev=len(self.mesh.axis_devices("data")))
+            return distributed.global_batch(self.mesh, local, put=self._put)
+        if self.mesh is not None:
+            from ..parallel.mesh import shard_batch
+
+            return shard_batch(self.mesh, self._pad_for_mesh(batch), put=self._put)
         return {k: self._transfers.put(v) for k, v in batch.items()}
 
     def _take_batch(self, staged):
         """The uploaded batch, ordered on the current stream after its copy."""
+        if self.mesh is not None:
+            return {k: [self._transfers_on(p.tensor.device).take(p) for p in v]
+                    for k, v in staged.items()}
         return {k: self._transfers.take(v) for k, v in staged.items()}
 
     def _corpus_class_freq(self, data) -> "np.ndarray":
@@ -495,7 +622,8 @@ class Trainer:
             data = self._balanced_resample(data, shuffle_rng)
         groups = {}
         for d in data:
-            shape = bucket_shape(_entry_shape(d), s.architecture.stride_factor, s.bucket_granularity)
+            shape = self._forced_bucket or bucket_shape(
+                _entry_shape(d), s.architecture.stride_factor, s.bucket_granularity)
             groups.setdefault(shape, []).append(d)
         order = []
         for shape, members in groups.items():
@@ -508,7 +636,14 @@ class Trainer:
         return order
 
     def _augment_on_device(self, batch, generator):
+        """The affine on the device; a mesh batch per shard, each with its
+        own generator (``generator`` is then a list, one per shard)."""
         from ..data.augment_device import DeviceAugmentConfig, augment_batch_on_device
+
+        if self.mesh is not None:
+            pieces = [self._augment_on_device({k: v[i] for k, v in batch.items()}, g)
+                      for i, g in enumerate(generator)]
+            return {k: [p[k] for p in pieces] for k in batch}
 
         aug = self.settings.data_augmentation_settings
         cfg = DeviceAugmentConfig(
@@ -529,10 +664,13 @@ class Trainer:
     def train(self, callback: Optional[TrainProgressCallback] = None) -> dict:
         s = self.settings
         os.makedirs(s.output_dir, exist_ok=True)
-        scalars = ScalarLogger(s.output_dir)
+        # across processes only process 0 writes the shared files (scalars,
+        # diagnostics, checkpoints); concurrent writers corrupt them
+        writer_process = self._writer_process()
+        scalars = ScalarLogger(s.output_dir) if writer_process else _NullLogger()
         diagnoser = (
             ModelDiagnoser(os.path.join(s.output_dir, "diagnostics"), s.validation_data.color_map)
-            if s.tensorboard and s.validation_data is not None
+            if writer_process and s.tensorboard and s.validation_data is not None
             else None
         )
 
@@ -581,8 +719,15 @@ class Trainer:
             rng = np.random.default_rng([s.seed, epoch])
             generator = None
             if device_augment:
-                generator = torch.Generator(device=self.device)
-                generator.manual_seed(int(np.random.SeedSequence([s.seed, epoch]).generate_state(1)[0]))
+                seed = int(np.random.SeedSequence([s.seed, epoch]).generate_state(1)[0])
+                if self.mesh is None:
+                    generator = torch.Generator(device=self.device)
+                    generator.manual_seed(seed)
+                else:
+                    generator = []
+                    for i, device in enumerate(self.mesh.axis_devices("data")):
+                        generator.append(torch.Generator(device=device))
+                        generator[-1].manual_seed(seed + i)
             dropout_rng = torch.Generator(device=self.device)
             dropout_rng.manual_seed(int(np.random.SeedSequence([s.seed, epoch, 1]).generate_state(1)[0]))
             epoch_metrics = []
@@ -702,6 +847,8 @@ class Trainer:
         if s.early_stopping_restore_best_weights and best_params is not None:
             self._assign(*best_params)
         scalars.close()
+        if self._orbax is not None:
+            self._orbax.wait()  # the last step's files are on disk when train() returns
         return history
 
     # ------------------------------------------------------------------ eval
@@ -718,6 +865,9 @@ class Trainer:
         return metrics
 
     def _run_eval(self, dataset: Dataset) -> dict:
+        # across processes every process holds the whole validation set, so
+        # each page counts once per process: harmless, the metrics are
+        # weighted means (duplicates scale numerator and denominator alike)
         results = []
         for samples in self._bucketed_batches(dataset, self.settings.batch_size):
             batch = self._take_batch(self._place_batch(self._make_batch(samples, augment=False, rng=None)))
@@ -739,8 +889,19 @@ class Trainer:
     def _current_lr(self) -> float:
         return self.optimizer.current_lr(self.opt_state)
 
+    def _writer_process(self) -> bool:
+        if not self._multi_host:
+            return True
+        from ..parallel import distributed
+
+        return distributed.process_index() == 0
+
     def _save(self, monitor_value: float, epoch: int, **loop_state) -> None:
         s = self.settings
+        if not self._writer_process():
+            # params and optimizer state are the same on every process; only
+            # one may write the shared checkpoint files
+            return
         meta = {
             "architecture": s.architecture.value,
             "n_classes": s.n_classes,
@@ -751,14 +912,17 @@ class Trainer:
             # loop counters for an exact resume
             **{k: (float(v) if v is not None else None) for k, v in loop_state.items()},
         }
-        path = os.path.join(s.output_dir, s.model_name + s.model_suffix)
         variables = {"params": self.params, **self.model_state}
-        save_checkpoint(
-            path,
-            variables,
-            meta=meta,
-            opt_state=None if s.save_weights_only else self.optimizer.state_dict(self.opt_state),
-        )
+        opt_state = None if s.save_weights_only else self.optimizer.state_dict(self.opt_state)
+        if s.checkpoint_backend == "orbax":
+            if self._orbax is None:
+                from .checkpoint import OrbaxCheckpointer
+
+                self._orbax = OrbaxCheckpointer(os.path.join(s.output_dir, s.model_name + "_orbax"))
+            self._orbax.save(epoch, variables, opt_state=opt_state, meta=meta)
+        # the msgpack directory is always written: PixelClassifier loads it
+        path = os.path.join(s.output_dir, s.model_name + s.model_suffix)
+        save_checkpoint(path, variables, meta=meta, opt_state=opt_state)
         if s.export_h5:
             # the reference's interchange artifact: a Keras-legacy .h5
             from ..models.h5_export import save_keras_variables

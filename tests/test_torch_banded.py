@@ -8,7 +8,8 @@ test's 5e-4 and with equal argmax, on fcn_skip and mobile_net at 704x64 in
 bands of 192 rows, whose last band is ragged; it equals the port's own
 unsplit forward the same way.  A short page runs whole; the Predictor's
 labels of a tall page equal the JAX Predictor's; EfficientNet is never
-banded; spatial partitioning over several devices still raises."""
+banded; spatial partitioning over several devices runs and takes
+precedence over bands."""
 import jax
 import numpy as np
 import pytest
@@ -123,12 +124,20 @@ def test_efficientnet_is_never_banded():
 
 
 def test_several_devices_raise_naming_item_12b():
+    # ported: spatial partitioning over several devices runs
+    # (tests/test_torch_spatial_mesh.py holds it against the JAX package);
+    # with both options a page above the threshold takes the mesh, not bands
     net = PixelClassifier(3, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        Predictor(PredictSettings(n_classes=3, n_devices=2), network=net)
-    for fn in (spatial.spatial_forward, spatial.spatial_forward_batch, spatial.spatial_predict):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            fn(None, None)
+    predictor = Predictor(PredictSettings(n_classes=3, n_devices=2, spatial_threshold=1,
+                                          band_rows=64), network=net)
+    tall = SingleData(image=np.zeros((704, 40), np.uint8), binary=np.ones((704, 40), np.uint8))
+    assert predictor._spatial_mesh.devices.size == 2
+    assert predictor._use_spatial(tall) and predictor._use_banded(tall)
+    image = np.random.RandomState(0).rand(704, 40, 1).astype(np.float32)
+    banded = spatial.banded_forward(net.module, image, band_rows=192, margin=80)
+    split = spatial.spatial_forward(net.module, image, predictor._spatial_mesh, margin=80)
+    np.testing.assert_allclose(split, banded, atol=5e-4)
+    np.testing.assert_array_equal(split.argmax(-1), banded.argmax(-1))
 
 
 def test_cli_band_rows_labels_equal_the_unbanded_and_jax(tmp_path):

@@ -98,8 +98,11 @@ def test_large_arrays_are_chunked_as_flax_chunks_them(monkeypatch):
 
 
 def test_optimizer_state_is_not_ported(tmp_path):
-    # the msgpack optimizer state is written now (tests/test_torch_train_optim.py);
-    # the Orbax checkpointer is what stays unported
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        checkpoint.OrbaxCheckpointer(str(tmp_path / "orbax"))
-    assert not os.path.exists(tmp_path / "orbax")
+    # ported: the msgpack optimizer state (tests/test_torch_train_optim.py)
+    # and the step-versioned checkpointer (tests/test_torch_checkpoint_versioned.py),
+    # whose steps hold the optimizer state beside the variables
+    ckpt = checkpoint.OrbaxCheckpointer(str(tmp_path / "orbax"))
+    ckpt.save(4, {"params": {"w": np.ones(2, np.float32)}}, opt_state={"count": np.int32(1)})
+    step, state, _ = ckpt.restore()
+    assert step == 4 and int(state["opt_state"]["count"]) == 1
+    assert os.path.exists(tmp_path / "orbax" / "4" / "opt_state.msgpack")

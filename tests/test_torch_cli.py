@@ -113,13 +113,24 @@ def test_user_errors_return_2_with_one_line(checkpoint, tmp_path, capsys):
     (["predict", "--n_devices", "2"], "item 12b"),
 ])
 def test_unported_subcommands_and_options_name_their_item(checkpoint, tmp_path, capsys, argv, item):
+    # ported: each option runs as in the JAX CLI (the train options on an
+    # empty split for 0 epochs here, on data in tests/test_torch_cli_train.py;
+    # predict --n_devices below its spatial threshold writes the plain trio)
     if argv[0] == "predict":
         corpus = _tiny_corpus(tmp_path / "corpus")
-        argv = argv[:1] + ["--device", "cpu"] + _predict_args(
-            checkpoint, tmp_path / "o", corpus / "images", corpus / "binary") + argv[1:]
-    assert main(argv) == 2
-    err = capsys.readouterr().err
-    assert err.startswith("error: ") and item in err and err.count("\n") == 1
+        args = _predict_args(checkpoint, tmp_path / "o", corpus / "images", corpus / "binary")
+        plain = _predict_args(checkpoint, tmp_path / "plain", corpus / "images", corpus / "binary")
+        assert main(["predict", "--device", "cpu"] + args + argv[1:]) == 0
+        assert main(["predict", "--device", "cpu"] + plain) == 0
+        for name in ("p0.png", "p1.png"):
+            np.testing.assert_array_equal(imread(tmp_path / "o" / "color" / name),
+                                          imread(tmp_path / "plain" / "color" / name))
+        return
+    out = [str(tmp_path / "port"), str(tmp_path / "jax")]
+    assert main(["train", "--device", "cpu", "--n_epoch", "0"] + argv[1:2] + [out[0]] + argv[3:]) == 0
+    assert jax_main(["train", "--n_epoch", "0"] + argv[1:2] + [out[1]] + argv[3:]) == 0
+    assert capsys.readouterr().err.count("error") == 0
+    assert sorted(os.listdir(out[0])) == sorted(os.listdir(out[1])) == ["scalars.jsonl"]
 
 
 def test_norm_dir_sets_the_line_height(checkpoint, tmp_path):

@@ -1,9 +1,10 @@
 """The port CLI's ``create-dataset-file`` and ``train`` against the JAX
 CLI's: the same dataset JSON, a checkpoint that both CLIs' ``predict``
-load, and the options that are not ported exiting 2 with one line."""
+load, and the multi-device and versioned-checkpoint options training."""
 import json
 import os
 import random
+import socket
 
 import numpy as np
 import pytest
@@ -86,8 +87,33 @@ def test_train_checkpoint_loads_in_both_clis_predict(tmp_path, data_dir, capsys)
     (["--checkpoint_backend", "orbax"], "item 11"),
     (["--auto_resume"], "item 11"),
 ])
-def test_unported_train_options_exit_2_with_one_line(tmp_path, capsys, flag, item):
-    assert main(["train", "--device", "cpu", "--output", str(tmp_path / "o")] + flag) == 2
-    err = capsys.readouterr().err
-    assert err.startswith("error: ") and item in err and err.count("\n") == 1
-    assert not (tmp_path / "o").exists()
+def test_unported_train_options_exit_2_with_one_line(tmp_path, capsys, flag, item, data_dir,
+                                                    monkeypatch):
+    # ported: each option trains (2 epochs at batch 2 on the CPU);
+    # --distributed joins a one-process gloo group from the launcher's
+    # environment, as torchrun sets it
+    from page_segmentation_tpu_torch.parallel import distributed
+
+    split = _dataset_file(main, data_dir, tmp_path / "data.json")
+    if flag == ["--distributed"]:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        for name, value in (("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", str(port)),
+                            ("WORLD_SIZE", "1"), ("RANK", "0")):
+            monkeypatch.setenv(name, value)
+    out = tmp_path / "o"
+    try:
+        assert main(["train", "--device", "cpu", "--split_file", str(split), "--output", str(out),
+                     "--n_epoch", "2", "--batch_size", "2"] + flag) == 0
+        assert distributed.is_initialized() == (flag == ["--distributed"])
+    finally:
+        distributed.shutdown()
+    capsys.readouterr()
+    scalars = [json.loads(line) for line in (out / "scalars.jsonl").read_text().splitlines()]
+    assert [r["epoch"] for r in scalars] == [0, 1] and np.isfinite(scalars[-1]["loss"])
+    assert (out / "model" / "params.msgpack").exists()
+    if flag == ["--checkpoint_backend", "orbax"]:
+        assert sorted(os.listdir(out / "model_orbax")) == ["0", "1"]
+    if flag == ["--auto_resume"]:  # without the orbax backend it starts fresh, as in JAX
+        assert not (out / "model_orbax").exists()

@@ -276,3 +276,48 @@ def test_exported_program_on_the_card(cuda_device, tmp_path):
     assert (got == want[:, :61, :45]).mean() >= 0.999
     with pytest.raises(ValueError, match="not 'cpu'"):
         AotClassifier(path, device="cpu")
+
+
+@pytest.mark.cuda
+def test_two_shard_mesh_on_one_card_equals_no_mesh(cuda_device):
+    """ThroughputPredictor over a mesh of the card twice: each shard labels
+    its own pages with the kernel (3 launches a shard), and the trio equals
+    the single-device run's."""
+    from page_segmentation_tpu_torch.core.colors import DEFAULT_IMAGE_MAP
+    from page_segmentation_tpu_torch.inference.pipeline import ThroughputPredictor
+    from page_segmentation_tpu_torch.models.fcn import FCNSkip
+    from page_segmentation_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.default_rng(0)
+    pages = rng.integers(0, 255, (5, 400, 296)).astype(np.uint8)
+    binaries = np.where(pages < 128, 0, 255).astype(np.uint8)
+    module = FCNSkip(3).to(cuda_device)
+
+    def run(mesh):
+        tp = ThroughputPredictor(module, None, DEFAULT_IMAGE_MAP.palette, (400, 296), 6 / 50,
+                                 compute_dtype=torch.float32, download="packed",
+                                 cc_vote="pallas", mesh=mesh)
+        return list(tp.run(pages, binaries, batch_size=5))[0]
+
+    want = run(None)
+    before = cuda_cc.launches
+    got = run(make_mesh(devices=[cuda_device, cuda_device]))
+    assert cuda_cc.launches - before == 2 * cuda_cc.LAUNCHES_PER_CALL
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_spatial_forward_on_one_card_twice_equals_the_whole_page(cuda_device):
+    from page_segmentation_tpu_torch.models.fcn import FCNSkip
+    from page_segmentation_tpu_torch.parallel.mesh import make_mesh
+    from page_segmentation_tpu_torch.parallel.spatial import spatial_forward
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    module = FCNSkip(3).to(cuda_device)
+    image = np.random.default_rng(1).random((640, 96, 1)).astype(np.float32)
+    split = spatial_forward(module, image, make_mesh(devices=[cuda_device, cuda_device]), margin=80)
+    with torch.no_grad():
+        whole = module(torch.from_numpy(image[None]).to(cuda_device))[0].cpu().numpy()
+    assert np.abs(split - whole).max() <= 5e-4 * np.abs(whole).max()

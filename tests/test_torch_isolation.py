@@ -125,6 +125,8 @@ def _entry_points():
     from page_segmentation_tpu_torch.cli.main import main as cli_main
     from page_segmentation_tpu_torch.network import Network
     from page_segmentation_tpu_torch.train.trainer import Trainer, TrainSettings
+    from page_segmentation_tpu_torch.parallel import distributed
+    from page_segmentation_tpu_torch.parallel.mesh import make_mesh
 
     ink = np.ones((8, 8), np.uint8)
     empty = Dataset([], ColorMap({(255, 255, 255): (0, "background")}))
@@ -147,6 +149,12 @@ def _entry_points():
         "Network": lambda: Network("train", n_classes=3),
         "train CLI": lambda: cli_main(["train", "--output", "unused"]),
         "AotClassifier": lambda: AotClassifier("unused.zip"),
+        "make_mesh": lambda: make_mesh(2),
+        "distributed.initialize": lambda: distributed.initialize("127.0.0.1:1", 1, 0),
+        "distributed.global_mesh": lambda: distributed.global_mesh(),
+        "Trainer(n_devices=2)": lambda: Trainer(TrainSettings(
+            n_epoch=0, n_classes=2, l_rate=1e-3, train_data=empty, validation_data=None,
+            display=0, output_dir="unused", threads=1, n_devices=2)),
     }
 
 
@@ -154,7 +162,8 @@ def _entry_points():
                                   "cc_min_label_batch", "cc_min_label_tiled", "cc_vote_batch",
                                   "PixelClassifier", "Predictor", "cc_vote_on_device", "add_one",
                                   "repro_download.main", "Trainer", "Network", "train CLI",
-                                  "AotClassifier"])
+                                  "AotClassifier", "make_mesh", "distributed.initialize",
+                                  "distributed.global_mesh", "Trainer(n_devices=2)"])
 def test_default_device_is_cuda_and_raises_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")

@@ -563,6 +563,7 @@ def test_unported_options_raise(tmp_path, monkeypatch):
         PixelClassifier(3, model_path=str(tmp_path / "model.h5"), device="cpu")
     monkeypatch.undo()
     port = PixelClassifier(3, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        Predictor(PredictSettings(n_classes=3, n_devices=2), network=port)
+    # n_devices is ported too (tests/test_torch_spatial_mesh.py): a CPU mesh
+    assert Predictor(PredictSettings(n_classes=3, n_devices=2),
+                     network=port)._spatial_mesh.devices.size == 2
     assert Predictor(PredictSettings(n_classes=3, band_rows=256), network=port)  # ported

@@ -182,8 +182,13 @@ def test_ink_bits_are_msb_first():
 def test_unported_options_raise(weights):
     module = _torch_module(weights)
     common = (module, None, PALETTE, PAGE, SCALE)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        torch_pipeline.ThroughputPredictor(*common, mesh=object(), device="cpu")
+    # the mesh is ported (tests/test_torch_pipeline_mesh.py): one staged
+    # chunk per device, the batch padded to the mesh
+    from page_segmentation_tpu_torch.parallel.mesh import make_mesh
+
+    meshed = torch_pipeline.ThroughputPredictor(*common, mesh=make_mesh(2, devices="cpu"),
+                                                device="cpu")
+    assert [s.tensor.shape[0] for s in meshed._put(np.zeros((3, 4, 4), np.uint8))] == [2, 2]
     # int8 is ported (tests/test_torch_quant.py): it builds the int8 twin
     tp = torch_pipeline.ThroughputPredictor(*common, int8=True, device="cpu")
     assert tp.int8 and tp.amax is None

@@ -180,6 +180,17 @@ def test_remat_gives_the_same_gradients(jax_params):
         np.testing.assert_allclose(grads_b[k].numpy(), grads_a[k].numpy(), rtol=1e-6, atol=1e-9)
 
 
-def test_mesh_names_its_item():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_step_fns(FCNSkip(2), Optimizers.SGD.make(1e-3), metrics.loss, mesh=object())
+def test_mesh_names_its_item(jax_params):
+    # ported (tests/test_torch_train_mesh.py): a mesh step equals the
+    # single-device step on the same pages
+    from page_segmentation_tpu_torch.parallel.mesh import make_mesh
+
+    _, flt = _batches()
+    params = params_from_jax(jax_params)
+    mesh_step, _ = _port_steps(mesh=make_mesh(3, devices="cpu"))
+    single, _ = _port_steps()
+    loss_m, grads_m = mesh_step.value_and_grad(params, {}, _torch(flt))
+    loss_s, grads_s = single.value_and_grad(params, {}, _torch(flt))
+    assert float(loss_m) == pytest.approx(float(loss_s), rel=1e-5)
+    for k in grads_s:
+        assert _rel_norm(grads_m[k].numpy(), grads_s[k].numpy()) < 1e-4, k

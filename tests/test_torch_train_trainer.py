@@ -5,6 +5,7 @@ against the JAX trainer from one checkpoint (a JAX init written by the JAX
 augmentation (the augmented batches bit-identical), and a JAX run resumed
 by the port.  Device augmentation's warp against the JAX ``_warp``."""
 import json
+import socket
 
 import jax
 import jax.numpy as jnp
@@ -256,8 +257,26 @@ def test_class_weighting_trains(tmp_path):
     (dict(auto_resume=True), "item 11"),
 ])
 def test_unported_settings_name_their_item(tmp_path, kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(_settings(tmp_path, _dataset(), **kwargs))
+    # ported: each setting trains (tests/test_torch_train_mesh*.py,
+    # test_torch_distributed.py and test_torch_checkpoint_versioned.py hold
+    # them against the JAX package); distributed at world size 1 over gloo
+    from page_segmentation_tpu_torch.parallel import distributed
+
+    if kwargs.get("distributed"):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        distributed.initialize(f"127.0.0.1:{port}", 1, 0, device="cpu")
+    try:
+        trainer = Trainer(_settings(tmp_path, _dataset(), n_epoch=1, **kwargs))
+        history = trainer.train()
+    finally:
+        distributed.shutdown()
+    assert np.isfinite(history["loss"]).all()
+    if kwargs.get("distributed") or kwargs.get("n_devices"):
+        assert trainer.mesh.devices.size == kwargs.get("n_devices", 1)
+    assert (tmp_path / "out" / "model_orbax" / "0").exists() == (
+        kwargs.get("checkpoint_backend") == "orbax")
 
 
 # ------------------------------------------------------ against the JAX trainer
