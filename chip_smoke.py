@@ -52,7 +52,12 @@ the kernels' launch counts set to 0 just before it and read just after:
   against the whole page, ``ParallelPredictor``, data-parallel train steps
   against the single-device step (FCNSkip) and the CPU mesh (mobile_net),
   and ``Trainer(distributed=True)`` over an NCCL group of one process with
-  the step-versioned checkpoints, then its ``auto_resume``.
+  the step-versioned checkpoints, then its ``auto_resume``;
+* training quality (``phase_quality``): the port's
+  ``tools/train_quality.py`` on the 11-page golden corpus, a model trained
+  on the card from a random start and evaluated on two held-out pages, with
+  floors on its FgPA and per-label F1, and its bf16 labels held against its
+  float32 labels on every held-out pixel.
 
 Each phase runs under PyTorch's default cuDNN and TF32 flags (those the
 port's CLI keeps) unless it states its own, prints them, and restores the
@@ -119,6 +124,12 @@ MESH_RAGGED = 47           # a ragged batch after the throughput cell's pages
 MESH_EXECUTOR_PAGES = 8    # ParallelPredictor batch
 MESH_STEP_PAGES = 7        # FCNSkip data-parallel step: odd, one shard padded
 MESH_BN_PAGES = 3          # mobile_net data-parallel step, card vs CPU
+QUALITY_EPOCHS = 300       # the recipe's cap; the trainer's early stopping ends the run
+QUALITY_SPLIT = (10, ["page10", "page4"])  # the JAX tool's seed and eval pages
+QUALITY_LOSS_DROP = 5
+QUALITY_FGPA = 0.85
+QUALITY_F1 = 0.5
+QUALITY_BF16_AGREEMENT = 0.999
 DEVICE = "cuda"
 
 # the cuDNN and TF32 flags, at PyTorch's defaults: the port's CLI sets none
@@ -2663,6 +2674,81 @@ def phase_mesh(pages, binaries, model: str, train_settings, work: str):
     return {"report": report, "launches": launches}
 
 
+@backend_flags("quality")
+def phase_quality(work: str):
+    """Training quality on the golden corpus: the port's
+    ``tools/train_quality.py`` workflow with the recipe of the JAX tool's
+    record (``--monitor val_accuracy``, augmentation, up to QUALITY_EPOCHS
+    epochs with the trainer's early stopping), train and ``predict --fast
+    --high_res_output`` on the card, then the same predict in bf16.  Gates:
+    the JAX tool's split, the loss down QUALITY_LOSS_DROP-fold, the held-out
+    FgPA and every per-label F1 over their floors, and the trained model's
+    bf16 and float32 labels equal on QUALITY_BF16_AGREEMENT of all held-out
+    pixels (every pixel counts, not only decisive ones)."""
+    import os
+
+    from page_segmentation_tpu_torch.cli.main import main as cli
+    from page_segmentation_tpu_torch.core.colors import ColorMap
+    from page_segmentation_tpu_torch.core.image_io import imread_rgb
+    from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
+    from page_segmentation_tpu_torch.tools import train_quality
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "quality")
+    os.makedirs(root)
+    args = train_quality.build_parser().parse_args(
+        ["--monitor", "val_accuracy", "--n-epoch", str(QUALITY_EPOCHS), "--device", DEVICE])
+    # the workflow's train launches no kernel (phase_train holds that), so
+    # the count read after it is its predict --fast's
+    cuda_cc.launches = cuda_add_one.launches = 0
+    record = train_quality.run_workflow(args, root)
+    torch.cuda.synchronize()
+    launches = {"cc_label": cuda_cc.launches, "add_one": cuda_add_one.launches}
+    paths = record.pop("paths")
+
+    bf16_dir = os.path.join(root, "pred_bf16")
+    cuda_cc.launches = 0
+    t0 = time.perf_counter()
+    rc = cli(train_quality.predict_args(paths["model"], paths["held"], bf16_dir, paths["image_map"],
+                                        args.target_line_height, DEVICE) + ["--dtype", "bfloat16"])
+    bf16_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"predict --fast --dtype bfloat16 returned {rc}")
+    cmap = ColorMap.load(paths["image_map"])
+    same = total = 0
+    for page in record["test_pages"]:
+        want = cmap.to_labels(imread_rgb(os.path.join(paths["pred"], "color", f"{page}.png")))
+        got = cmap.to_labels(imread_rgb(os.path.join(bf16_dir, "color", f"{page}.png")))
+        same += int((want == got).sum())
+        total += want.size
+    agreement = same / total
+    f1 = {k: v["f1"] for k, v in record["per_label"].items()}
+    report = {**record, "bf16_agreement": agreement, "bf16_pixels": total,
+              "bf16_predict_s": bf16_s, "bf16_cc_label_launches": cuda_cc.launches,
+              "cc_label_launches": launches["cc_label"],
+              "phase_s": time.perf_counter() - t_phase}
+    # the record goes out before the gates, so a failed run still shows its numbers
+    log("quality: " + json.dumps(report))
+    log(f"phase quality: {record['epochs_ran']} epochs in {record['train_seconds']} s; held-out FgPA "
+        f"{record['value']}, accuracy {record['accuracy']}, F1 {f1}; bf16 == float32 on "
+        f"{agreement:.6f} of {total} pixels; {report['phase_s']:.1f} s")
+    if (record["split_seed"], record["test_pages"]) != QUALITY_SPLIT:
+        raise AssertionError(f"split {record['split_seed']} {record['test_pages']} is not the JAX "
+                             f"tool's {QUALITY_SPLIT}")
+    if not record["loss_last"] < record["loss_first"] / QUALITY_LOSS_DROP:
+        raise AssertionError(f"loss {record['loss_first']} -> {record['loss_last']}: not down "
+                             f"{QUALITY_LOSS_DROP}-fold")
+    if record["value"] < QUALITY_FGPA or min(f1.values()) < QUALITY_F1:
+        raise AssertionError(f"held-out FgPA {record['value']} (floor {QUALITY_FGPA}), "
+                             f"F1 {f1} (floor {QUALITY_F1})")
+    if agreement < QUALITY_BF16_AGREEMENT:
+        raise AssertionError(f"trained FCNSkip: bf16 vs float32 labels agree on {agreement:.6f} of "
+                             f"{total} held-out pixels (floor {QUALITY_BF16_AGREEMENT})")
+    if launches["add_one"]:
+        raise AssertionError("add_one ran on the quality path")
+    return {"report": report, "launches": launches}
+
+
 def profiled(fn):
     """Run ``fn`` under torch.profiler: (wall µs, µs in which the device ran
     a kernel or a copy, device µs by event name, device event count)."""
@@ -2754,6 +2840,7 @@ def main(argv=None) -> int:
         trainer = train.pop("trainer")
         train_families = phase_train_families(trainer, work)
         mesh = phase_mesh(pages, binaries, corpus["model"], trainer.settings, work)
+        quality = phase_quality(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2805,7 +2892,8 @@ def main(argv=None) -> int:
                              "families_train": train_families["launches"]["cc_label"],
                              "segment": segment["launches"]["cc_label"],
                              **{k: v["cc_label"] for k, v in option_launches.items()},
-                             "mesh_throughput": mesh["launches"]["mesh_throughput"]["cc_label"]},
+                             "mesh_throughput": mesh["launches"]["mesh_throughput"]["cc_label"],
+                             "quality": quality["launches"]["cc_label"]},
         "tiled": kernel["tiled"],
     }, {
         "name": "add_one",
@@ -2821,7 +2909,8 @@ def main(argv=None) -> int:
                              "families_library": 0, "families_train": train_families["launches"]["add_one"],
                              "segment": segment["launches"]["add_one"],
                              **{k: v["add_one"] for k, v in option_launches.items()},
-                             "mesh_throughput": mesh["launches"]["mesh_throughput"]["add_one"]},
+                             "mesh_throughput": mesh["launches"]["mesh_throughput"]["add_one"],
+                             "quality": quality["launches"]["add_one"]},
         "max_abs_err": add_one["max_abs_err"],
         "ms": add_one["ms"],
         "plain_ms": add_one["plain_ms"],

@@ -52,6 +52,7 @@ _LAZY = {
     "Dataset": ("page_segmentation_tpu_torch.data.dataset", "Dataset"),
     "DatasetLoader": ("page_segmentation_tpu_torch.data.loader", "DatasetLoader"),
     "PixelClassifier": ("page_segmentation_tpu_torch.inference.classifier", "PixelClassifier"),
+    "Prediction": ("page_segmentation_tpu_torch.inference.predictor", "Prediction"),
     "Predictor": ("page_segmentation_tpu_torch.inference.predictor", "Predictor"),
     "PredictSettings": ("page_segmentation_tpu_torch.inference.predictor", "PredictSettings"),
     "make_fused_predict": ("page_segmentation_tpu_torch.inference.pipeline", "make_fused_predict"),

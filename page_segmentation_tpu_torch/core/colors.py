@@ -1,7 +1,6 @@
-"""RGB <-> label codec: the part of ``ColorMap`` the predict, evaluate,
-segmentation and mask-generation paths need, including the JSON "image
-map" reader and writer (``--color_map``, ``image_map.json``), and
-``exact_color_mask``.
+"""RGB <-> label codec: ``ColorMap`` (colors, indices and label names
+both ways, the JSON "image map" reader and writer of ``--color_map`` and
+``image_map.json``) and ``exact_color_mask``.
 
 The on-disk JSON form maps a stringified RGB tuple to ``[index, label]``::
 
@@ -10,7 +9,7 @@ The on-disk JSON form maps a stringified RGB tuple to ``[index, label]``::
 from __future__ import annotations
 
 import json
-from typing import Dict, Mapping, Tuple, Union
+from typing import Dict, Iterable, Mapping, Tuple, Union
 
 import numpy as np
 
@@ -50,6 +49,24 @@ class ColorMap:
     def __len__(self) -> int:
         return len(self._color_to_entry)
 
+    def __contains__(self, color: ColorKey) -> bool:
+        return _parse_color(color) in self._color_to_entry
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, ColorMap) and other._color_to_entry == self._color_to_entry
+
+    def __repr__(self) -> str:
+        return f"ColorMap({self._color_to_entry!r})"
+
+    @property
+    def mapping(self) -> Dict[RGBColor, Tuple[int, str]]:
+        return dict(self._color_to_entry)
+
+    @property
+    def labels(self) -> Iterable[str]:
+        """The label names, ordered by index (first color of a label wins)."""
+        return list(self._label_to_color)
+
     @classmethod
     def load(cls, path) -> "ColorMap":
         with open(path, "r") as f:
@@ -63,8 +80,14 @@ class ColorMap:
     def color_for_label(self, label: str) -> RGBColor:
         return self._label_to_color[label]
 
+    def color_for_index(self, index: int) -> RGBColor:
+        return self._index_to_color[index]
+
     def index_for_label(self, label: str) -> int:
         return self._color_to_entry[self._label_to_color[label]][0]
+
+    def label_for_index(self, index: int) -> str:
+        return self._color_to_entry[self._index_to_color[index]][1]
 
     @property
     def n_classes(self) -> int:

@@ -23,7 +23,7 @@ import torch
 
 from ..data.dataset import SingleData
 from ..device import resolve_device
-from ..models.bridge import init_variables_numpy, params_from_jax
+from ..models.bridge import init_variables, params_from_jax
 from ..models.registry import Architecture
 from ..ops.pad import bucket_shape, crop_to, pad_to
 from ..utils import gray_to_rgb
@@ -39,8 +39,9 @@ class PixelClassifier:
     layout, ``{"params": ..., "batch_stats": ...}`` of numpy arrays
     (``batch_stats`` for the BatchNorm families); setting either loads them
     into the module.  Without ``model_path`` the weights are
-    ``models/bridge.py`` ``init_variables_numpy(module, seed)`` (numpy's
-    generator: not the JAX package's random init).  ``model_path`` is a
+    ``models/bridge.py`` ``init_variables(module, seed)``: the JAX
+    package's fresh weights for FCNSkip and FCN, numpy's draws under
+    flax's law for the other models.  ``model_path`` is a
     checkpoint directory or a Keras ``.h5`` (read with h5py).
     """
 
@@ -131,7 +132,7 @@ class PixelClassifier:
 
     # ----------------------------------------------------------- params I/O
     def init_params(self, seed: int = 0) -> None:
-        self.variables = init_variables_numpy(self.module, seed)
+        self.variables = init_variables(self.module, seed)
 
     def _rebuild(self, architecture: Architecture) -> None:
         self.architecture = architecture
@@ -249,3 +250,10 @@ class PixelClassifier:
         pred = unpack_classes(downloaded) if pack else downloaded
         return pred, np.stack(finish_mask_trio(pred, ink, palette))
 
+
+
+def network_for_model(model_path: str, n_classes: int, **kwargs) -> PixelClassifier:
+    """The reference's ``Network("Predict", n_classes, model=path)``: a
+    :class:`PixelClassifier` of the checkpoint at ``model_path``, on the
+    card unless ``device=`` says otherwise."""
+    return PixelClassifier(n_classes=n_classes, model_path=os.path.abspath(model_path), **kwargs)

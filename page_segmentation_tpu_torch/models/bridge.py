@@ -17,7 +17,9 @@ buffers outside the state dict; :func:`amax_to_jax` and
 :func:`amax_from_jax` carry them to and from the JAX package's ``amax``
 collection, ``{"conv1": {"in": float32}, ...}``.
 
-:func:`init_variables_numpy` draws a module's variables from a seed.
+:func:`init_variables` draws a fresh module's variables from a seed: flax's
+own weights for FCNSkip and FCN, numpy draws under flax's law
+(:func:`init_variables_numpy`) for the other models.
 Checkpoints (``params.msgpack``) are read by ``train/checkpoint.py``.
 """
 from __future__ import annotations
@@ -151,6 +153,22 @@ def init_variables_numpy(module: torch.nn.Module, seed: int) -> dict:
         return rng.uniform(-limit, limit, size=shape).astype(np.float32)
 
     return _variables(module, glorot)
+
+
+def init_variables(module: torch.nn.Module, seed: int) -> dict:
+    """A fresh module's variables in the JAX layout: for FCNSkip and FCN
+    (the s2d stem has the same parameters) flax's own draw from
+    ``PRNGKey(seed)``, the JAX package's weights bit for bit
+    (``models/flax_init.py``); for the other models
+    :func:`init_variables_numpy`."""
+    from . import flax_init
+    from .fcn import FCN, FCNSkip
+
+    if isinstance(module, (FCN, FCNSkip)):
+        shapes = [(name.split(".")[0], "kernel" if name.endswith(".weight") else "bias",
+                   _jax_shape(name, p)) for name, p in module.named_parameters()]
+        return {"params": flax_init.fcn_params(shapes, seed)}
+    return init_variables_numpy(module, seed)
 
 
 def zero_variables(module: torch.nn.Module) -> dict:

@@ -20,7 +20,7 @@ from typing import Dict
 
 import numpy as np
 
-from .mobilenet_import import _bn_split, _set
+from .mobilenet_import import _bn_split, _set, replace_encoder
 
 _BLOCK_RE = re.compile(r"^block(\d+)([a-z])_(.+)$")
 _DECODER = ["b_1", "conv6_1", "conv6_2", "conv7_1", "conv7_2", "conv8_1", "conv8_2",
@@ -130,3 +130,10 @@ def load_effnet_seg_h5(path_or_view):
         kernel, bias = view.get(name if name == "logits" else f"{name}_conv")
         params[name] = {"kernel": np.asarray(kernel, np.float32), "bias": np.asarray(bias, np.float32)}
     return {"params": params, "batch_stats": {"encoder": enc_stats}}
+
+
+def load_into_effnet_seg(variables, h5_path: str):
+    """``variables`` of a ``EffNetSeg`` with its encoder replaced by the
+    weights of the Keras backbone ``.h5`` at ``h5_path`` (the decoder
+    untouched)."""
+    return replace_encoder(variables, *load_effnet_encoder_h5(h5_path))

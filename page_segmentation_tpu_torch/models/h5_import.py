@@ -240,6 +240,13 @@ def _zero_variables(arch: Architecture, n_classes: int):
     return zero_variables(module)
 
 
+def json_like(tree):
+    """A nested mapping of arrays as nested plain dicts of the same arrays."""
+    if isinstance(tree, np.ndarray):
+        return tree
+    return {k: json_like(v) for k, v in dict(tree).items()}
+
+
 def load_encoder_into(variables, architecture: Architecture, h5_path: str):
     """Fine-tuning entry: replace the encoder subtree of freshly initialized
     segmentation variables with backbone weights from a keras-applications

@@ -172,6 +172,10 @@ def calibrate_batch_stats(module: nn.Module, x) -> None:
         module.eval()
 
 
+def relu(x):
+    return torch.relu(x)
+
+
 def max_pool_same(x, window: Tuple[int, int] = (2, 2), strides: Tuple[int, int] = (2, 2)):
     """``MaxPooling2D(padding='same')`` on NCHW: TF pads the spatial dims
     with -inf, the extra row/column at the bottom/right."""

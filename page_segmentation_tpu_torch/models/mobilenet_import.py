@@ -115,3 +115,10 @@ def load_mobilenet_seg_h5(path_or_view):
         kernel, bias = view.get(src)
         params[dst] = {"kernel": np.asarray(kernel, np.float32), "bias": np.asarray(bias, np.float32)}
     return {"params": params, "batch_stats": {"encoder": enc_stats}}
+
+
+def load_into_mobilenet_seg(variables, h5_path: str):
+    """``variables`` of a ``MobileNetSeg`` with its encoder replaced by the
+    weights of the Keras backbone ``.h5`` at ``h5_path`` (the decoder
+    untouched)."""
+    return replace_encoder(variables, *load_mobilenet_encoder_h5(h5_path))

@@ -12,7 +12,7 @@ from typing import Dict
 
 import numpy as np
 
-from .mobilenet_import import _bn_split, _set
+from .mobilenet_import import _bn_split, _set, replace_encoder
 
 _BLOCKS = [3, 4, 6, 3]
 # the decoder's conv blocks; Keras layer "<name>_conv"
@@ -64,3 +64,10 @@ def load_resnet_seg_h5(path_or_view):
         kernel, bias = view.get(name if name == "logits" else f"{name}_conv")
         params[name] = {"kernel": np.asarray(kernel, np.float32), "bias": np.asarray(bias, np.float32)}
     return {"params": params, "batch_stats": {"encoder": enc_stats}}
+
+
+def load_into_resnet_seg(variables, h5_path: str):
+    """``variables`` of a ``ResNet50Seg`` with its encoder replaced by the
+    weights of the Keras backbone ``.h5`` at ``h5_path`` (the decoder
+    untouched)."""
+    return replace_encoder(variables, *load_resnet50_encoder_h5(h5_path))

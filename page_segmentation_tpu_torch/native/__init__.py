@@ -59,6 +59,16 @@ def get_lib() -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """Whether the native library builds and loads here (a missing
+    compiler is an ``OSError``, a failed build a ``RuntimeError``)."""
+    try:
+        get_lib()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 def cc_with_stats(image: np.ndarray, connectivity: int = 4):
     """cv2.connectedComponentsWithStats of the nonzero pixels of one (H, W)
     image: (num_labels, int32 labels, (n, 5) int32 stats, (n, 2) float64

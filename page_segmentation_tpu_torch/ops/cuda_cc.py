@@ -159,6 +159,12 @@ def cc_min_label_batch(ink, max_iters: int = _MAX_CYCLES, device="cuda"):
     return _labels(_as_ink(ink, device, 3), max_iters)
 
 
+def cc_min_label_xla_batch(ink, max_iters: int = _MAX_CYCLES, device="cuda"):
+    """The JAX package's Pallas-free batched labeler; in the port it is
+    :func:`cc_min_label_batch` (the same kernel on the card)."""
+    return cc_min_label_batch(ink, max_iters, device=device)
+
+
 def cc_min_label_pallas(ink, max_iters: int = _MAX_CYCLES, device="cuda"):
     """(H, W) ink mask -> (int32 labels, passes): the whole-page entry point
     (K1 on the TPU)."""

@@ -3,6 +3,8 @@
 Counterpart of ``page_segmentation_tpu/ops/pad.py``: pages are padded
 bottom/right to a bucketed shape (a multiple of the encoder's stride) before
 the forward, and the logits are cropped back exactly afterwards.
+``bucket_report`` and ``suggest_granularity`` weigh the bucket sizes for a
+distribution of page shapes.
 """
 from __future__ import annotations
 
@@ -43,3 +45,38 @@ def pad_to(image: np.ndarray, target: Sequence[int], value=0) -> np.ndarray:
 def crop_to(array: np.ndarray, shape: Sequence[int]) -> np.ndarray:
     """The top-left (H, W) region: the inverse of :func:`pad_to`."""
     return array[: int(shape[0]), : int(shape[1])]
+
+
+def bucket_report(shapes: Sequence[Sequence[int]], factor: int = STRIDE_FACTOR,
+                  granularities: Sequence[int] = (1, 2, 4, 8)) -> dict:
+    """For each granularity: the number of distinct buckets ``shapes`` fall
+    into, the padded pixels over the real ones less 1, and the share of the
+    pages in the largest bucket.  Coarser buckets mean fewer shapes and
+    more padding."""
+    report = {}
+    for granularity in granularities:
+        buckets = {}
+        real = padded = 0
+        for shape in shapes:
+            bucket = bucket_shape(shape, factor, granularity)
+            buckets[bucket] = buckets.get(bucket, 0) + 1
+            real += int(shape[0]) * int(shape[1])
+            padded += bucket[0] * bucket[1]
+        report[int(granularity)] = {
+            "buckets": len(buckets),
+            "padding_overhead": padded / real - 1.0 if real else 0.0,
+            "largest_bucket_share": (max(buckets.values()) / len(shapes)) if shapes else 0.0,
+        }
+    return report
+
+
+def suggest_granularity(shapes: Sequence[Sequence[int]], factor: int = STRIDE_FACTOR,
+                        max_buckets: int = 8,
+                        granularities: Sequence[int] = (1, 2, 4, 8, 16)) -> int:
+    """The granularity of least padding among those with at most
+    ``max_buckets`` buckets; the largest granularity if none has."""
+    report = bucket_report(shapes, factor, granularities)
+    eligible = [g for g, r in report.items() if r["buckets"] <= max_buckets]
+    if not eligible:
+        return max(report)
+    return min(eligible, key=lambda g: report[g]["padding_overhead"])

@@ -7,20 +7,21 @@ region types of ``PageXMLTypes`` with their fixed RGB colors, and
 (path, coords tag, type) rules.  Files are parsed with
 ``xml.etree.ElementTree``; polygons and baselines are drawn by the port's
 native rasterizer (``native.fill_polygon`` / ``native.draw_lines``), which
-draws PIL ``ImageDraw``'s pixels, and masks are written with the port's
-PNG encoder.  Nothing here needs lxml or PIL.
+draws PIL ``ImageDraw``'s pixels, and PNG masks are written with PIL's
+bytes by ``core.image_io.encode_png_pil`` (the golden corpus freezes
+them).  Nothing here needs lxml, and PNG masks need no PIL.
 """
 from __future__ import annotations
 
 import enum
 import os
 import xml.etree.ElementTree as ET
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, Mapping, NamedTuple, Optional, Set, Tuple
 
 import numpy as np
 
 from .. import native
-from ..core.image_io import imsave
+from ..core.image_io import imsave_pil
 
 _PAGE_NAMESPACE_PREFIX = "http://schema.primaresearch.org/PAGE/gts/pagecontent"
 
@@ -55,9 +56,20 @@ class PCGTSVersion(enum.Enum):
         }[self]
 
     @staticmethod
-    def detect(namespaces) -> "PCGTSVersion":
-        """The version of the first PAGE namespace among ``namespaces``,
-        the URIs declared on a document's root element."""
+    def detect(root) -> "PCGTSVersion":
+        """The version of the first PAGE namespace declared on a document's
+        root element.  ``root`` is the element as lxml parses it (its
+        ``nsmap``), a prefix -> URI mapping, the declared URIs, or an
+        ``xml.etree`` element, which keeps no declarations: there the
+        namespace of its own tag is taken."""
+        if hasattr(root, "nsmap"):
+            namespaces = root.nsmap.values()
+        elif isinstance(root, Mapping):
+            namespaces = root.values()
+        elif isinstance(getattr(root, "tag", None), str):
+            namespaces = [root.tag[1:].split("}")[0]] if root.tag.startswith("{") else []
+        else:
+            namespaces = root
         for ns in namespaces:
             if ns.startswith(_PAGE_NAMESPACE_PREFIX):
                 for version in PCGTSVersion:
@@ -133,6 +145,9 @@ class PageXMLTypes(enum.Enum):
         mapping["(255, 255, 255)"] = (0, "background")
         return mapping
 
+    # the reference's name
+    color_map = image_map
+
 
 class Region(NamedTuple):
     polygon: List[Tuple[int, int]]
@@ -143,6 +158,13 @@ class PageRegions(NamedTuple):
     image_size: Tuple[int, int]
     xml_regions: List[Region]
     filename: str
+
+    def only_types(self, types: Set[PageXMLTypes]) -> "PageRegions":
+        return PageRegions(
+            image_size=self.image_size,
+            xml_regions=[x for x in self.xml_regions if x.type in types],
+            filename=self.filename,
+        )
 
 
 class MaskGenerator:
@@ -156,7 +178,7 @@ class MaskGenerator:
         page_name = os.path.splitext(os.path.basename(name_source))[0]
         os.makedirs(output_dir, exist_ok=True)
         out = os.path.join(output_dir, f"{page_name}.mask.{self.settings.mask_extension}")
-        imsave(out, page_region_to_mask(page, self.settings))
+        imsave_pil(out, page_region_to_mask(page, self.settings))
         return out
 
 

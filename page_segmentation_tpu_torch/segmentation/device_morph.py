@@ -40,23 +40,23 @@ def morph_kernels(char_height: int) -> Tuple[int, int, int]:
     )
 
 
-def dilate_box(mask: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+def dilate_box(mask_bool: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
     """cv2.dilate of an (N, H, W) bool tensor with a kh x kw box."""
-    m = sliding(mask, kh, kh // 2, 1, torch.logical_or, False)
+    m = sliding(mask_bool, kh, kh // 2, 1, torch.logical_or, False)
     return sliding(m, kw, kw // 2, 2, torch.logical_or, False)
 
 
-def erode_box(mask: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+def erode_box(mask_bool: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
     """cv2.erode of an (N, H, W) bool tensor with a kh x kw box."""
-    m = sliding(mask, kh, kh // 2, 1, torch.logical_and, True)
+    m = sliding(mask_bool, kh, kh // 2, 1, torch.logical_and, True)
     return sliding(m, kw, kw // 2, 2, torch.logical_and, True)
 
 
-def text_region_chain(mask: torch.Tensor, kernels: Tuple[int, int, int]) -> torch.Tensor:
+def text_region_chain(mask_bool: torch.Tensor, kernels: Tuple[int, int, int]) -> torch.Tensor:
     """close(k), open(k3), dilate(k11), close(k11) of an (N, H, W) bool
     text mask, ``kernels`` = ``morph_kernels(char_height)``."""
     k, k3, k11 = (int(v) for v in kernels)
-    m = erode_box(dilate_box(mask, k, k), k, k)
+    m = erode_box(dilate_box(mask_bool, k, k), k, k)
     m = dilate_box(erode_box(m, k3, k3), k3, k3)
     m = dilate_box(m, k11, k11)
     return erode_box(dilate_box(m, k11, k11), k11, k11)

@@ -12,7 +12,7 @@ the canonical-height resize are the port's own ops (``ops.morphology``,
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -21,6 +21,18 @@ from ..ops import morphology
 from ..ops.contours import fill_contour, find_external_contours
 from ..ops.resize import resize_nearest_cv
 from .xycut import CVContour, RectSegment, do_xy_cut
+
+ColorMapping = Dict[str, np.ndarray]
+
+
+def seg(left_upper: Tuple[int, int], right_lower: Tuple[int, int]) -> RectSegment:
+    return RectSegment(left_upper[0], left_upper[1], right_lower[0], right_lower[1])
+
+
+DEFAULT_COLOR_MAPPING = {
+    "image": np.array([0, 255, 0]),
+    "text": np.array([0, 0, 255]),
+}
 
 
 @dataclass(frozen=True)

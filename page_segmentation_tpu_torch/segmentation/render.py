@@ -5,6 +5,9 @@ inclusive slice fills and polygons go through ``ops.contours.fill_contour``.
 The command's renders are palette-index canvases (:class:`PaletteImage`)
 written as indexed PNGs by ``core.image_io.imsave_indexed``; a decoder
 recovers the same RGB pixels as from the JAX package's files.
+``render_rect_segments`` and ``render_contours`` (alias
+``render_ocv_contours``) paint RGB canvases, returned as (H, W, 3) arrays
+where the JAX package returns PIL images of the same pixels.
 
 Coordinate quirks kept from the reference: ``render_xycut`` reverses
 ``orig_shape`` into a (width, height) canvas size while
@@ -58,6 +61,26 @@ def _paint_contours(canvas: np.ndarray, contours: Sequence[CVContour], fill) -> 
         fill_contour(canvas, np.atleast_2d(contour.contour), fill)
 
 
+def render_rect_segments(size: Tuple[int, int],
+                         segment_groups: List[Tuple[RGBColor, List[RectSegment]]],
+                         base_color: RGBColor = WHITE) -> np.ndarray:
+    """An (H, W, 3) uint8 canvas of the (width, height) ``size`` in
+    ``base_color``, each group's rectangles filled with its color in turn."""
+    width, height = size
+    canvas = np.broadcast_to(np.asarray(base_color, np.uint8), (height, width, 3)).copy()
+    for color, segments in segment_groups:
+        _paint_rects(canvas, segments, color)
+    return canvas
+
+
+def render_contours(base_image, contours: List[CVContour], color_rgb: RGBColor) -> np.ndarray:
+    """A copy of ``base_image`` (an array, or anything ``np.array`` takes)
+    with ``contours`` filled in ``color_rgb``."""
+    canvas = np.array(base_image)
+    _paint_contours(canvas, contours, color_rgb)
+    return canvas
+
+
 def render_xycut(orig_shape: Tuple[int, int], label_colors: ColorMap,
                  segments_text: List[RectSegment],
                  segments_image: List[RectSegment]) -> PaletteImage:
@@ -105,3 +128,7 @@ def render_regions(
         image = image.to_rgb()
     imsave(outfile, image)
     return outfile
+
+
+# the reference's cv2-named alias
+render_ocv_contours = render_contours

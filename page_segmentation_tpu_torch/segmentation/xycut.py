@@ -1,7 +1,8 @@
 """Recursive XY-cut page segmentation.
 
 Counterpart of the JAX package's ``segmentation.xycut``: the region classes
-(``CVContour``, ``RectSegment``), ``ProfileTables`` and ``do_xy_cut``.  Two
+(``CVContour``, ``RectSegment``), ``single_color``, ``ProfileTables`` and
+``do_xy_cut``.  Two
 prefix-sum tables of a page's foreground make the projection profile of any
 subregion a difference of two table rows or columns, so the cut never
 rescans pixels; subregions are processed depth-first from an explicit
@@ -61,6 +62,9 @@ class RectSegment(Region):
     x_end: int
     y_end: int
 
+    def of(self, image: np.ndarray):
+        return image[self.y_start : self.y_end, self.x_start : self.x_end]
+
     def scale(self, factor: float) -> "RectSegment":
         return RectSegment(
             x_start=int(self.x_start * factor),
@@ -68,6 +72,9 @@ class RectSegment(Region):
             x_end=int(self.x_end * factor),
             y_end=int(self.y_end * factor),
         )
+
+    def as_xy(self) -> List[Tuple[int, int]]:
+        return [(self.y_start, self.x_start), (self.y_end, self.x_end)]
 
     def polygon_coords(self) -> Union[List[Tuple[int, int]], np.ndarray]:
         return [
@@ -94,6 +101,15 @@ class Segment1D:
 class Gap:
     start: int
     length: int
+
+
+def single_color(image: np.ndarray, color: Union[int, np.ndarray]) -> np.ndarray:
+    """Bool mask of the pixels equal to ``color`` (all channels of an
+    (H, W, C) image)."""
+    mask = image == color
+    if len(image.shape) > 2:
+        mask = mask.all(axis=-1)
+    return mask
 
 
 class ProfileTables:

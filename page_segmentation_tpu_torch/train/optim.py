@@ -92,6 +92,18 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
     return schedule
 
 
+def per_leaf_norm_clip(max_norm: float) -> Callable[[Tree], Tree]:
+    """Keras ``clipnorm``: each gradient tensor scaled down to the L2 norm
+    ``max_norm`` where its own norm exceeds it."""
+
+    def clip_leaf(x):
+        norm = torch.sqrt((x * x).sum())
+        scale = torch.where(norm > max_norm, max_norm / (norm + 1e-12), 1.0)
+        return x * scale.to(x.dtype)
+
+    return lambda grads: {k: clip_leaf(v) for k, v in grads.items()}
+
+
 def map_tree(fn, *trees):
     """``fn`` over the leaves of nested dicts of tensors."""
     if isinstance(trees[0], dict):
@@ -199,13 +211,7 @@ class Optimizer:
     def _inner_update(self, grads: Tree, state: dict, params: Tree):
         g = grads
         if self.norm_clipping:
-            def clip_leaf(x):
-                norm = torch.sqrt((x * x).sum())
-                scale = torch.where(norm > self.norm_clip_value,
-                                    self.norm_clip_value / (norm + 1e-12), 1.0)
-                return x * scale.to(x.dtype)
-
-            g = {k: clip_leaf(v) for k, v in g.items()}
+            g = per_leaf_norm_clip(self.norm_clip_value)(g)
         if self.value_clipping:
             g = {k: v.clamp(-self.clip_value, self.clip_value) for k, v in g.items()}
         new = {"count": _safe_increment(state["count"])}

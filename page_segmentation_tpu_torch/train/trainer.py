@@ -23,9 +23,10 @@ families, its buffers; ``Trainer.params`` and ``Trainer.model_state`` read
 and write them as the JAX param tree and ``{"batch_stats": ...}`` of numpy
 arrays, and checkpoints hold both in flax's layout.  Each epoch's dropout
 masks (UNet) come from a ``torch.Generator`` seeded from (seed, epoch).  A
-fresh run starts from ``PixelClassifier``'s weights
-(``init_variables_numpy``: not flax's init), so runs compared with the JAX
-package start both from one checkpoint (``load``).  ``pretrained_encoder``
+fresh run starts from ``PixelClassifier``'s weights (``init_variables``:
+flax's own for FCNSkip and FCN, so a fresh FCNSkip run starts where the JAX
+trainer's does; the other models' differ, so runs compared with the JAX
+package start both from one checkpoint, ``load``).  ``pretrained_encoder``
 loads an encoder from a Keras ``.h5`` or a provisioned encoder directory;
 ``export_h5`` writes a Keras ``.h5`` beside each checkpoint (h5py).
 

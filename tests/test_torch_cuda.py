@@ -321,3 +321,21 @@ def test_spatial_forward_on_one_card_twice_equals_the_whole_page(cuda_device):
     with torch.no_grad():
         whole = module(torch.from_numpy(image[None]).to(cuda_device))[0].cpu().numpy()
     assert np.abs(split - whole).max() <= 5e-4 * np.abs(whole).max()
+
+
+@pytest.mark.cuda
+def test_train_quality_trains_and_evaluates_on_the_card(cuda_device, tmp_path):
+    """The golden-corpus workflow (gen-masks, create-dataset-file, train,
+    predict --fast --high_res_output, evaluate) with train and predict on
+    the card, for 2 epochs; the record has the JAX tool's keys."""
+    import json
+
+    from page_segmentation_tpu_torch.tools import train_quality
+
+    record = tmp_path / "quality.json"
+    assert train_quality.main(["--n-epoch", "2", "--monitor", "val_accuracy",
+                               "--record", str(record)]) == 0
+    result = json.loads(record.read_text())
+    assert result["split_seed"] == 10 and result["test_pages"] == ["page10", "page4"]
+    assert result["epochs_ran"] == 2 and 0.0 <= result["value"] <= 1.0
+    assert set(result["per_label"]) == {"label_0", "label_1", "label_2"}

@@ -119,7 +119,7 @@ def _entry_points():
     )
     from page_segmentation_tpu_torch.models.fcn import FCNSkip
     from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
-    from page_segmentation_tpu_torch.tools import repro_download
+    from page_segmentation_tpu_torch.tools import repro_download, train_quality
     from page_segmentation_tpu_torch.core.colors import ColorMap
     from page_segmentation_tpu_torch.data.dataset import Dataset
     from page_segmentation_tpu_torch.cli.main import main as cli_main
@@ -155,6 +155,7 @@ def _entry_points():
         "Trainer(n_devices=2)": lambda: Trainer(TrainSettings(
             n_epoch=0, n_classes=2, l_rate=1e-3, train_data=empty, validation_data=None,
             display=0, output_dir="unused", threads=1, n_devices=2)),
+        "train_quality.main": lambda: train_quality.main(["--n-epoch", "1"]),
     }
 
 
@@ -163,7 +164,8 @@ def _entry_points():
                                   "PixelClassifier", "Predictor", "cc_vote_on_device", "add_one",
                                   "repro_download.main", "Trainer", "Network", "train CLI",
                                   "AotClassifier", "make_mesh", "distributed.initialize",
-                                  "distributed.global_mesh", "Trainer(n_devices=2)"])
+                                  "distributed.global_mesh", "Trainer(n_devices=2)",
+                                  "train_quality.main"])
 def test_default_device_is_cuda_and_raises_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")

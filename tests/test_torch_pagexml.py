@@ -4,8 +4,9 @@ and draws with PIL: the same pixels for the golden corpus in all five
 settings, for seeded random polygons (concave, self-intersecting, collinear,
 off the canvas, retracing their own edges, two points or fewer) and for
 polylines of widths 1-9.
-Pixels are compared, not files: the port's PNG encoder is not PIL's (PIL's
-encoding of the port's golden-corpus masks is the frozen file)."""
+The golden corpus's mask files are compared byte for byte (the port
+writes PIL's PNG bytes, which the corpus freezes); the rasterizer's
+polygons and polylines are compared as pixels."""
 import hashlib
 import io
 import json
@@ -44,10 +45,11 @@ def test_gen_masks_cli_writes_the_jax_clis_pixels(setting, tmp_path):
         if name.endswith(".png"):
             got, want = imread_rgb(str(port_dir / name)), jax_imread_rgb(str(jax_dir / name))
             assert got.shape == want.shape and (got == want).all(), name
-            # PIL's encoding of the port's pixels is the frozen file
+            # PIL's encoding of the port's pixels is the frozen file, and the port writes it
             buf = io.BytesIO()
             Image.fromarray(got).save(buf, format="PNG")
             assert hashlib.sha256(buf.getvalue()).hexdigest() == frozen[name], name
+            assert (port_dir / name).read_bytes() == (jax_dir / name).read_bytes(), name
     assert json.loads((port_dir / "image_map.json").read_text()) == \
         json.loads((jax_dir / "image_map.json").read_text())
 
