@@ -44,8 +44,14 @@ the kernels' launch counts set to 0 just before it and read just after:
   throughput path with the device vote, each held against the CPU and
   bf16 against float32, and mobile_net from a checkpoint on the library
   batch path;
-* the Trainer on mobile_net (BatchNorm) and unet (dropout), with one
-  float32 BatchNorm step held against the CPU;
+* flax's fresh weights (``phase_init``): ``PixelClassifier(3, arch,
+  seed=0)`` of all 14 architectures drawn on the host, every leaf held
+  against the JAX package's digests (``tests/flax_init_digests.json``) and
+  its copy on the card, EfficientNet-B7's draw within INIT_DRAW_LIMIT_S,
+  and one throughput batch of mobile_net and effb0 from those weights with
+  the device vote held against the plain labeler's;
+* the Trainer on mobile_net (BatchNorm) and unet (dropout) from their fresh
+  weights, with one float32 BatchNorm step held against the CPU;
 * several devices, on a mesh of this card twice (``phase_mesh``): the
   throughput cell with ``mesh=`` (K1 on every shard; trio byte-equal to no
   mesh), ``spatial_forward`` of a 6016x4096 page in two bands with halos
@@ -124,6 +130,8 @@ MESH_RAGGED = 47           # a ragged batch after the throughput cell's pages
 MESH_EXECUTOR_PAGES = 8    # ParallelPredictor batch
 MESH_STEP_PAGES = 7        # FCNSkip data-parallel step: odd, one shard padded
 MESH_BN_PAGES = 3          # mobile_net data-parallel step, card vs CPU
+INIT_THROUGHPUT = ("mobile_net", "effb0")  # phase_init: one throughput batch each
+INIT_DRAW_LIMIT_S = 5.0    # effb7's fresh draw on the host
 QUALITY_EPOCHS = 300       # the recipe's cap; the trainer's early stopping ends the run
 QUALITY_SPLIT = (10, ["page10", "page4"])  # the JAX tool's seed and eval pages
 QUALITY_LOSS_DROP = 5
@@ -2184,6 +2192,126 @@ def phase_families(pages, binaries, work: str):
             "library_agreement": float(agree.mean())}
 
 
+def frozen_digests():
+    """``tests/make_flax_init_digests.py``, loaded from its file: the frozen
+    file's path, its leaf walk and its comparison (no JAX at import)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "make_flax_init_digests.py")
+    spec = importlib.util.spec_from_file_location("make_flax_init_digests", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@backend_flags("init")
+def phase_init(pages, binaries):
+    """Fresh models from flax's draw: for each architecture,
+    ``PixelClassifier(3, architecture, seed=SEED)`` on the card, timed, and
+    the draw alone (``init_variables`` of the module's shapes), timed; every
+    leaf of its variables, and of its weights read back from the card, held
+    against the frozen digests of the JAX package's init; effb7's draw
+    within INIT_DRAW_LIMIT_S.  Then one ThroughputPredictor batch of each of
+    INIT_THROUGHPUT from its fresh bf16 weights (download="packed",
+    cc_vote="pallas"), the labeler launched LAUNCHES_PER_CALL times, and the
+    device vote held against the plain labeler's on the same predictions."""
+    from page_segmentation_tpu_torch.core.colors import DEFAULT_IMAGE_MAP
+    from page_segmentation_tpu_torch.inference.classifier import PixelClassifier
+    from page_segmentation_tpu_torch.inference.output import unpack_bits_device
+    from page_segmentation_tpu_torch.inference.pipeline import ThroughputPredictor, make_fused_predict
+    from page_segmentation_tpu_torch.models.bridge import init_variables, params_to_jax
+    from page_segmentation_tpu_torch.models.registry import Architecture
+    from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
+
+    digests = frozen_digests()
+    with open(digests.PATH) as f:
+        frozen = json.load(f)
+    if frozen["seed"] != SEED or frozen["n_classes"] != 3:
+        raise AssertionError(f"{digests.PATH} holds seed {frozen['seed']}, {frozen['n_classes']} classes")
+    draws = {}
+    for arch in Architecture:
+        t0 = time.perf_counter()
+        clf = PixelClassifier(3, architecture=arch, seed=SEED, device=DEVICE)
+        torch.cuda.synchronize()
+        classifier_s = time.perf_counter() - t0
+        with torch.device("meta"):
+            shapes = arch.model(3)
+        t0 = time.perf_counter()
+        init_variables(shapes, SEED)
+        draw_s = time.perf_counter() - t0
+        entry = frozen["models"][arch.value]
+        n_leaves = sum(1 for _ in digests.leaves(entry))
+        bad = digests.mismatches(clf.variables, entry, frozen["digests"])
+        on_card = params_to_jax(clf.module.state_dict())
+        on_card = on_card if "params" in on_card else {"params": on_card}
+        bad_card = digests.mismatches(on_card, entry, frozen["digests"])
+        n_values = sum(p.numel() for p in clf.module.parameters())
+        draws[arch.value] = {"parameters": n_values, "leaves": n_leaves,
+                             "bit_equal_leaves": n_leaves - len(bad), "classifier_s": classifier_s,
+                             "draw_s": draw_s}
+        log(f"phase init {arch.value}: PixelClassifier(3, seed={SEED}) in {classifier_s:.3f} s, the "
+            f"draw alone {draw_s:.3f} s ({n_values} parameters); {n_leaves - len(bad)} of {n_leaves} "
+            f"leaves bit-equal to the JAX package's, {n_leaves - len(bad_card)} on the card")
+        if bad or bad_card:
+            raise AssertionError(f"{arch.value}: leaves differ from {digests.PATH}: "
+                                 f"{(bad or bad_card)[:5]}")
+        del clf
+    if draws["effb7"]["draw_s"] > INIT_DRAW_LIMIT_S:
+        raise AssertionError(f"effb7's fresh draw took {draws['effb7']['draw_s']:.2f} s "
+                             f"(limit {INIT_DRAW_LIMIT_S} s)")
+
+    palette = DEFAULT_IMAGE_MAP.palette
+    (out_h, out_w), _ = normalized_shapes()
+    throughput, launches = {}, {"cc_label": 0, "add_one": 0}
+    for name in INIT_THROUGHPUT:
+        arch = Architecture(name)
+        bf16 = PixelClassifier(3, architecture=arch, seed=SEED, compute_dtype=torch.bfloat16,
+                               device=DEVICE).module
+        tp = ThroughputPredictor(
+            bf16, None, palette, A4, SCALE, host_decimate=HOST_DECIMATE,
+            stride_factor=arch.stride_factor, compute_dtype=torch.bfloat16, download="packed",
+            cc_vote="pallas", preprocess_mode=arch.preprocess_mode, device=DEVICE)
+        torch.cuda.synchronize()
+        cuda_cc.launches = cuda_add_one.launches = 0
+        t0 = time.perf_counter()
+        outs = [tuple(a.copy() for a in trio) for trio in tp.run(pages[:BATCH], binaries[:BATCH],
+                                                                batch_size=BATCH)]
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        n_launches = cuda_cc.launches
+        launches["cc_label"] += n_launches
+        launches["add_one"] += cuda_add_one.launches
+        if n_launches != cuda_cc.LAUNCHES_PER_CALL or cuda_add_one.launches:
+            raise AssertionError(f"{name}: cc_label launched {n_launches} times (expected "
+                                 f"{cuda_cc.LAUNCHES_PER_CALL}), add_one {cuda_add_one.launches}")
+        if len(outs) != 1 or any(a.shape != (BATCH, out_h, out_w, 3) or a.dtype != np.uint8
+                                 for a in outs[0]):
+            raise AssertionError(f"{name}: trio {[[(a.shape, a.dtype) for a in t] for t in outs]}")
+        # the vote: kernel == plain labeler on one dispatch's predictions
+        prepared = tp.prep_batch(pages[:BATCH], binaries[:BATCH])
+        dec_t, ink_t = tp.transfers.take(prepared[0]), tp.transfers.take(prepared[2])
+        unvoted = make_fused_predict(bf16, (out_h, out_w), stride_factor=arch.stride_factor,
+                                     compute_dtype=torch.bfloat16, download="pred",
+                                     preprocess_mode=arch.preprocess_mode, device=DEVICE)(dec_t, tp.palette_dev)
+        ink = unpack_bits_device(ink_t)
+        voted = cuda_cc.cc_vote_batch(unvoted, ink, 3, device=DEVICE)
+        plain = cuda_cc._vote_from_labels(unvoted, ink, cuda_cc.cc_min_label_reference(ink)[0], 3)
+        if not torch.equal(voted, plain):
+            raise AssertionError(f"{name}: device vote != plain labeler's vote on the same predictions")
+        classes = torch.bincount(unvoted.flatten().long(), minlength=3).tolist()
+        throughput[name] = {"batch_s": batch_s, "cc_label_launches": n_launches,
+                            "predicted_px_by_class": classes,
+                            "relabeled_px": int((voted != unvoted).sum())}
+        log(f"  {name} from its fresh weights: one throughput batch of {BATCH} A4 pages in "
+            f"{batch_s:.3f} s (first call, cuDNN plans included); cc_label launches "
+            f"{n_launches}; predicted pixels by class {classes}; device vote == plain "
+            f"labeler's ({throughput[name]['relabeled_px']} px relabeled)")
+        del tp, bf16
+        torch.cuda.empty_cache()
+    return {"draws": draws, "throughput": throughput, "launches": launches}
+
+
 @backend_flags("train families")
 def phase_train_families(trainer, work: str):
     """The Trainer on TRAIN_FAMILIES (BatchNorm, dropout) over phase_train's
@@ -2837,6 +2965,7 @@ def main(argv=None) -> int:
         serve = phase_serve(pages, corpus["model"])
         train = phase_train(pages, binaries, work)
         families = phase_families(pages, binaries, work)
+        init = phase_init(pages, binaries)
         trainer = train.pop("trainer")
         train_families = phase_train_families(trainer, work)
         mesh = phase_mesh(pages, binaries, corpus["model"], trainer.settings, work)
@@ -2859,6 +2988,7 @@ def main(argv=None) -> int:
                        ("int8_throughput", "s2d_throughput", "banded", "export")}
     log("training: " + json.dumps({k: v for k, v in train.items() if k != "launches"}))
     log("families: " + json.dumps(families["families"]))
+    log("init: " + json.dumps({k: v for k, v in init.items() if k != "launches"}))
     log("training families: " + json.dumps(train_families["families"]))
     family_launches = sum(f["cc_label_launches"] for f in families["families"].values())
     print(json.dumps({"kernels": [{
@@ -2889,6 +3019,7 @@ def main(argv=None) -> int:
                              "train": train["launches"]["cc_label"],
                              "families_throughput": family_launches,
                              "families_library": families["library_launches"],
+                             "init": init["launches"]["cc_label"],
                              "families_train": train_families["launches"]["cc_label"],
                              "segment": segment["launches"]["cc_label"],
                              **{k: v["cc_label"] for k, v in option_launches.items()},
@@ -2906,7 +3037,8 @@ def main(argv=None) -> int:
                              "predict_pipeline_cli": 0, "corpus_pallas": 0, "predict_fast_cli": 0,
                              "serve_fused": 0, "serve_spline": 0,
                              "train": train["launches"]["add_one"], "families_throughput": 0,
-                             "families_library": 0, "families_train": train_families["launches"]["add_one"],
+                             "families_library": 0, "init": init["launches"]["add_one"],
+                             "families_train": train_families["launches"]["add_one"],
                              "segment": segment["launches"]["add_one"],
                              **{k: v["add_one"] for k, v in option_launches.items()},
                              "mesh_throughput": mesh["launches"]["mesh_throughput"]["add_one"],

@@ -281,15 +281,21 @@ def _coerce_uint8(image: np.ndarray) -> np.ndarray:
     return image
 
 
+# PNG color types by channel count: gray, gray + alpha, RGB, RGBA
+_COLOR_TYPES = {1: 0, 2: 4, 3: 2, 4: 6}
+
+
 def encode_png(image: np.ndarray) -> bytes:
-    """PNG bytes of a uint8 gray (H, W) or RGB (H, W, 3) array, filter-0
-    rows at zlib level 1."""
+    """PNG bytes of a uint8 gray (H, W) or (H, W, C) array of 1 to 4
+    channels (gray, gray + alpha, RGB, RGBA), filter-0 rows at zlib level
+    1."""
     image = np.ascontiguousarray(_coerce_uint8(image))
     if image.ndim == 2:
-        return _png_bytes(image, image.shape[1], 8, 0)
-    if image.ndim == 3 and image.shape[2] == 3:
-        return _png_bytes(image.reshape(image.shape[0], -1), image.shape[1], 8, 2)
-    raise ValueError(f"encode_png takes (H, W) gray or (H, W, 3) RGB, got {image.shape}")
+        image = image[..., None]
+    if image.ndim != 3 or image.shape[2] not in _COLOR_TYPES:
+        raise ValueError(f"encode_png takes (H, W) or (H, W, 1-4 channels), got {image.shape}")
+    return _png_bytes(image.reshape(image.shape[0], -1), image.shape[1], 8,
+                      _COLOR_TYPES[image.shape[2]])
 
 
 def imsave(path, image: np.ndarray) -> None:

@@ -40,8 +40,7 @@ class PixelClassifier:
     (``batch_stats`` for the BatchNorm families); setting either loads them
     into the module.  Without ``model_path`` the weights are
     ``models/bridge.py`` ``init_variables(module, seed)``: the JAX
-    package's fresh weights for FCNSkip and FCN, numpy's draws under
-    flax's law for the other models.  ``model_path`` is a
+    package's fresh weights, bit for bit, for every model.  ``model_path`` is a
     checkpoint directory or a Keras ``.h5`` (read with h5py).
     """
 

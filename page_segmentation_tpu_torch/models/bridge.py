@@ -18,8 +18,9 @@ buffers outside the state dict; :func:`amax_to_jax` and
 collection, ``{"conv1": {"in": float32}, ...}``.
 
 :func:`init_variables` draws a fresh module's variables from a seed: flax's
-own weights for FCNSkip and FCN, numpy draws under flax's law
-(:func:`init_variables_numpy`) for the other models.
+own weights, bit for bit, for every model (``models/flax_init.py``; each
+layer's ``kernel_init`` names its law).  :func:`init_variables_numpy` draws
+glorot-uniform kernels from numpy instead, for fixed test weights.
 Checkpoints (``params.msgpack``) are read by ``train/checkpoint.py``.
 """
 from __future__ import annotations
@@ -117,16 +118,16 @@ def _jax_shape(name: str, tensor: torch.Tensor) -> Tuple[int, ...]:
 
 
 def _variables(module: torch.nn.Module, kernel) -> dict:
-    """The module's variables in the JAX layout: ``kernel(shape)`` for each
-    kernel in registration order, zero biases, BatchNorm scale 1, mean 0,
-    var 1 (flax's initializers)."""
+    """The module's variables in the JAX layout: ``kernel(path, shape)`` for
+    each kernel (its scope path, its JAX shape) in registration order, zero
+    biases, BatchNorm scale 1, mean 0, var 1 (flax's initializers)."""
     params: dict = {}
     stats: dict = {}
     for name, p in module.named_parameters():
         *path, leaf = name.split(".")
         shape = _jax_shape(name, p)
         if leaf == "weight":
-            _set(params, path + ["kernel"], kernel(shape))
+            _set(params, path + ["kernel"], kernel(tuple(path), shape))
         else:
             fill = np.ones if leaf == "scale" else np.zeros
             _set(params, path + [leaf], fill(shape, np.float32))
@@ -138,16 +139,17 @@ def _variables(module: torch.nn.Module, kernel) -> dict:
 
 
 def init_variables_numpy(module: torch.nn.Module, seed: int) -> dict:
-    """Random variables of ``module`` in the JAX layout, under flax's law:
+    """Random variables of ``module`` in the JAX layout, not flax's draw:
     glorot-uniform kernels (fan in + out over the receptive field, whatever
-    the layout: conv, conv-transpose, depthwise), zero biases, BatchNorm
-    scale 1 / bias 0 / mean 0 / var 1; kernels drawn in the module's
-    registration order from a ``numpy.random.Generator`` seeded with
-    ``seed``.  Only the module's shapes are read (a meta-device module
-    will do)."""
+    the layout or the layer's ``kernel_init``: conv, conv-transpose,
+    depthwise), zero biases, BatchNorm scale 1 / bias 0 / mean 0 / var 1;
+    kernels drawn in the module's registration order from a
+    ``numpy.random.Generator`` seeded with ``seed``.  Fixed weights for
+    tests and checks; a fresh model takes :func:`init_variables`.  Only the
+    module's shapes are read (a meta-device module will do)."""
     rng = np.random.default_rng(seed)
 
-    def glorot(shape):
+    def glorot(path, shape):
         kh, kw, a, b = shape
         limit = np.sqrt(6.0 / ((a + b) * kh * kw))
         return rng.uniform(-limit, limit, size=shape).astype(np.float32)
@@ -155,25 +157,42 @@ def init_variables_numpy(module: torch.nn.Module, seed: int) -> dict:
     return _variables(module, glorot)
 
 
-def init_variables(module: torch.nn.Module, seed: int) -> dict:
-    """A fresh module's variables in the JAX layout: for FCNSkip and FCN
-    (the s2d stem has the same parameters) flax's own draw from
-    ``PRNGKey(seed)``, the JAX package's weights bit for bit
-    (``models/flax_init.py``); for the other models
-    :func:`init_variables_numpy`."""
-    from . import flax_init
-    from .fcn import FCN, FCNSkip
+def kernel_laws(module: torch.nn.Module) -> Dict[Tuple[str, ...], str]:
+    """Each kernel's scope path (its state_dict name without ``.weight``,
+    the JAX tree's path) and the flax initializer its layer names; a layer
+    with a kernel that names none raises."""
+    from .flax_init import LAWS
 
-    if isinstance(module, (FCN, FCNSkip)):
-        shapes = [(name.split(".")[0], "kernel" if name.endswith(".weight") else "bias",
-                   _jax_shape(name, p)) for name, p in module.named_parameters()]
-        return {"params": flax_init.fcn_params(shapes, seed)}
-    return init_variables_numpy(module, seed)
+    laws = {}
+    for name, layer in module.named_modules():
+        if layer._parameters.get("weight") is None:
+            continue
+        law = getattr(layer, "kernel_init", None)
+        if law not in LAWS:
+            raise TypeError(f"{type(layer).__name__} {name!r} names no flax initializer "
+                            f"(kernel_init {law!r}; known: {LAWS})")
+        laws[tuple(name.split("."))] = law
+    return laws
+
+
+def init_variables(module: torch.nn.Module, seed: int) -> dict:
+    """A fresh module's variables in the JAX layout: the JAX package's
+    ``module.init({"params": PRNGKey(seed), ...})`` bit for bit, each kernel
+    under its layer's ``kernel_init`` (``models/flax_init.py``).  Only the
+    module's shapes are read."""
+    from . import flax_init
+
+    laws = kernel_laws(module)
+    shapes = {tuple(name.split(".")[:-1]): _jax_shape(name, p)
+              for name, p in module.named_parameters() if name.endswith(".weight")}
+    kernels = [(path, law, shapes[path]) for path, law in laws.items()]
+    values = dict(zip(laws, flax_init.draw(kernels, seed)))
+    return _variables(module, lambda path, shape: values[path])
 
 
 def zero_variables(module: torch.nn.Module) -> dict:
     """All-zero variables of ``module`` in the JAX layout (a template)."""
-    variables = _variables(module, lambda shape: np.zeros(shape, np.float32))
+    variables = _variables(module, lambda path, shape: np.zeros(shape, np.float32))
     return {k: _zeros(tree) for k, tree in variables.items()}
 
 

@@ -23,6 +23,7 @@ import math
 import torch
 from torch import nn
 
+from .flax_init import LECUN_NORMAL
 from .layers import BatchNorm, Segmenter, TFConv, conv_block_simple, upsample2x
 
 # (width_mult, depth_mult) per variant
@@ -70,7 +71,8 @@ class _ConvBN(nn.Module):
     def __init__(self, cin, features, kernel=3, strides=1, act=True, groups=1, dtype=None):
         super().__init__()
         self.conv = TFConv(cin, features, (kernel, kernel), strides=(strides, strides),
-                           use_bias=False, groups=groups, dtype=dtype)
+                           use_bias=False, groups=groups, dtype=dtype,
+                           kernel_init=LECUN_NORMAL)  # flax nn.Conv
         self.bn = BatchNorm(features, momentum=0.99, epsilon=1e-3, dtype=dtype)
         self.act = act
 

@@ -21,6 +21,11 @@ pieces the model families use:
 * :class:`Segmenter` — the base of every model: ``forward`` takes and
   returns NHWC like the JAX modules; ``forward_nchw`` is the net.
 
+Every layer with a kernel names, as ``kernel_init``, the flax initializer
+of its JAX counterpart (``models/flax_init.py``): ``glorot_uniform`` for
+the Keras-style ``TFConv`` / ``TFConvTranspose``, ``lecun_normal`` for a
+``TFConv`` that stands for flax's own ``nn.Conv``.
+
 Weights are kept in float32 (torch layout: conv ``(out, in / groups, kh,
 kw)``, conv-transpose ``(in, out, kh, kw)``) and cast to the compute dtype
 at each call, as the flax modules cast their float32 params.  The bias is
@@ -42,6 +47,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .flax_init import GLOROT_UNIFORM
+
 
 def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
     """TF/lax SAME padding of one spatial dim: (before, after)."""
@@ -51,13 +58,15 @@ def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
 
 class TFConv(nn.Module):
     """Conv2D with SAME/VALID/explicit padding, strides, groups, optional
-    bias and ReLU."""
+    bias and ReLU; ``kernel_init`` is the JAX counterpart's initializer
+    (``lecun_normal`` for flax ``nn.Conv``)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: Tuple[int, int],
                  strides: Tuple[int, int] = (1, 1), relu: bool = False, use_bias: bool = True,
                  padding: Union[str, int] = "SAME", groups: int = 1,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, kernel_init: str = GLOROT_UNIFORM):
         super().__init__()
+        self.kernel_init = kernel_init
         kh, kw = kernel_size
         self.weight = nn.Parameter(torch.zeros(features, in_features // groups, kh, kw))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
@@ -90,6 +99,8 @@ class TFConv(nn.Module):
 
 class TFConvTranspose(nn.Module):
     """Keras SAME transposed convolution with bias and optional ReLU."""
+
+    kernel_init = GLOROT_UNIFORM  # glorot_uniform(in_axis=3, out_axis=2): the same fans
 
     def __init__(self, in_features: int, features: int, kernel_size: Tuple[int, int],
                  strides: Tuple[int, int] = (1, 1), relu: bool = False,

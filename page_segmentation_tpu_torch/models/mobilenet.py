@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .flax_init import LECUN_NORMAL
 from .layers import BatchNorm, Segmenter, TFConv, TFConvTranspose
 
 
@@ -49,7 +50,8 @@ class _DepthwiseBN(nn.Module):
     def __init__(self, channels, strides=1, dtype=None):
         super().__init__()
         self.dwconv = TFConv(channels, channels, (3, 3), strides=(strides, strides),
-                             use_bias=False, groups=channels, dtype=dtype)
+                             use_bias=False, groups=channels, dtype=dtype,
+                             kernel_init=LECUN_NORMAL)  # flax nn.Conv
         self.bn = _bn(channels, dtype)
 
     def forward(self, x):

@@ -1,5 +1,5 @@
 """ctypes bindings for the host C functions of the predict, segmentation
-and PageXML paths (``ps_native.cpp``).
+and PageXML paths and of flax's fresh weights (``ps_native.cpp``).
 
 The library is built with g++ at first use into the package's ``_build/``
 directory (see ``_kernels.py``); a failed build raises.  Every wrapper
@@ -25,6 +25,7 @@ NATIVE_SPEC = LibrarySpec(
 
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _int = ctypes.c_int
 
@@ -44,6 +45,8 @@ _SIGNATURES = {
     "ps_unpack_indices": (_int, [_u8p, _int, _int, _int, _int, _u8p]),
     "ps_fill_polygon": (_int, [_u8p, _int, _int, _int, _int, _i32p, _u8p]),
     "ps_draw_lines": (_int, [_u8p, _int, _int, _int, _int, _i32p, _u8p, _int]),
+    "ps_flax_draw": (None, [ctypes.c_uint32, ctypes.c_uint32, _int, ctypes.c_float,
+                            ctypes.c_int64, ctypes.c_int64, _f32p]),
 }
 
 
@@ -67,6 +70,18 @@ def available() -> bool:
     except (OSError, RuntimeError):
         return False
     return True
+
+
+def flax_draw(key, law: int, scale: np.float32, start: int, out: np.ndarray) -> None:
+    """flax's initializer values of the flat indices [start, start +
+    out.size) of one kernel drawn from ``key`` (``models/flax_init.py``):
+    law 0 glorot_uniform's uniform [-1, 1), law 1 lecun_normal's truncated
+    normal, times ``scale``; written into the contiguous float32 ``out``."""
+    if out.dtype != np.float32 or out.ndim != 1 or not out.flags.c_contiguous:
+        raise ValueError(f"out must be a contiguous 1-D float32 array, got {out.dtype} {out.shape}")
+    if law not in (0, 1):
+        raise ValueError(f"law must be 0 (glorot_uniform) or 1 (lecun_normal), got {law}")
+    get_lib().ps_flax_draw(int(key[0]), int(key[1]), law, float(scale), int(start), out.size, out)
 
 
 def cc_with_stats(image: np.ndarray, connectivity: int = 4):

@@ -5,12 +5,14 @@
 // (union-find labeling with raster-order numbering).  And those of the
 // segmentation and PageXML paths: external contour tracing, bit-packed
 // binary morphology, PNG row unfiltering, sub-byte index packing, and a
-// rasterizer that draws PIL's polygons and lines.  These run on the host,
-// GIL-free through ctypes; they are not device kernels.
+// rasterizer that draws PIL's polygons and lines.  And the values of flax's
+// kernel initializers for a fresh model (models/flax_init.py).  These run on
+// the host, GIL-free through ctypes; they are not device kernels.
 //
 // Built at first use by native/__init__.py (g++ -O3 -shared).  Outputs are
 // byte-identical to page_segmentation_tpu's native library, which
-// tests/test_torch_native.py and tests/test_torch_segmentation.py check.
+// tests/test_torch_native.py and tests/test_torch_segmentation.py check;
+// the initializers' values to JAX's (tests/test_torch_flax_init.py).
 
 #include <algorithm>
 #include <cmath>
@@ -1151,6 +1153,128 @@ int ps_draw_lines(uint8_t* canvas, int h, int w, int c, int count,
             wide_line(im, xy[2 * i], xy[2 * i + 1], xy[2 * i + 2], xy[2 * i + 3], width);
     }
     return 0;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------- flax's fresh weights
+// The values flax's kernel initializers make on XLA's CPU backend, from
+// JAX's threefry-2x32 bits of a kernel's flat indices (models/flax_init.py
+// derives the keys and scales).  Written with explicit fmaf where XLA's
+// code contracts a multiply-add (the build's -ffp-contract=off fuses
+// nothing else), constants rounded as XLA rounds them: double literals
+// cast to float for log and log1p, float literals for erf_inv.
+
+namespace flax {
+
+inline uint32_t f2u(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
+inline float u2f(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline uint32_t rotl(uint32_t x, int r) { return (x << r) | (x >> (32 - r)); }
+
+// JAX's partitionable random bits of flat index i: the two threefry
+// output words of the counter (i >> 32, i & 0xffffffff), XORed.
+inline uint32_t bits(uint32_t k0, uint32_t k1, uint64_t i) {
+    const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+    static constexpr int kRot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+    uint32_t x0 = static_cast<uint32_t>(i >> 32) + k0;
+    uint32_t x1 = static_cast<uint32_t>(i) + k1;
+    for (int r = 0; r < 5; ++r) {
+        for (int j = 0; j < 4; ++j) {
+            x0 += x1;
+            x1 = rotl(x1, kRot[r & 1][j]) ^ x0;
+        }
+        x0 += ks[(r + 1) % 3];
+        x1 += ks[(r + 2) % 3] + static_cast<uint32_t>(r + 1);
+    }
+    return x0 ^ x1;
+}
+
+// a float in [0, 1) from the top 23 bits
+inline float unit(uint32_t b) { return u2f((b >> 9) | 0x3F800000u) - 1.0f; }
+
+#define F(x) static_cast<float>(x)
+
+// XLA's CPU float32 log of a positive normal v: Cephes' logf.
+inline float xla_log(float v) {
+    const uint32_t b = f2u(v);
+    float e = 1.0f + static_cast<float>(static_cast<int32_t>(b >> 23) - 127);
+    const float m = u2f((b & 0x807FFFFFu) | 0x3F000000u);
+    const bool below = m < F(0.707106781186547524);
+    const float t = (m - 1.0f) + (below ? m : 0.0f);
+    e = e - (below ? 1.0f : 0.0f);
+    const float x2 = t * t, x3 = x2 * t;
+    float p = fmaf(fmaf(t, F(7.0376836292E-2), F(-1.1514610310E-1)), t, F(1.1676998740E-1));
+    const float p1 = fmaf(fmaf(t, F(-1.2420140846E-1), F(1.4249322787E-1)), t, F(-1.6668057665E-1));
+    const float p2 = fmaf(fmaf(t, F(2.0000714765E-1), F(-2.4999993993E-1)), t, F(3.3333331174E-1));
+    p = fmaf(fmaf(p, x3, p1), x3, p2);
+    p = fmaf(p, x3, F(-2.12194440e-4) * e);
+    return fmaf(F(0.693359375), e, (t - 0.5f * x2) + p);
+}
+
+// XLA's float32 log1p of x in (-1, 0]: Cephes' rational below sqrt(2) - 1,
+// else the log of 1 + x.
+inline float xla_log1p(float x) {
+    const float x2 = x * x;
+    float num = F(4.5270000862445199635215E-5);
+    num = fmaf(num, x, F(4.9854102823193375972212E-1));
+    num = fmaf(num, x, F(6.5787325942061044846969E0));
+    num = fmaf(num, x, F(2.9911919328553073277375E1));
+    num = fmaf(num, x, F(6.0949667980987787057556E1));
+    num = fmaf(num, x, F(5.7112963590585538103336E1));
+    num = fmaf(num, x, F(2.0039553499201281259648E1));
+    float den = 1.0f;
+    den = fmaf(den, x, F(1.5062909083469192043167E1));
+    den = fmaf(den, x, F(8.3047565967967209469434E1));
+    den = fmaf(den, x, F(2.2176239823732856465394E2));
+    den = fmaf(den, x, F(3.0909872225312059774938E2));
+    den = fmaf(den, x, F(2.1642788614495947685003E2));
+    den = fmaf(den, x, F(6.0118660497603843919306E1));
+    const float small = x + fmaf(-0.5f, x2, (x * x2) * (num / den));
+    return std::fabs(x) < F(0.41421356237309504880) ? small : xla_log(x + 1.0f);
+}
+
+// jax.random.truncated_normal(key, -2, 2) from a float in [0, 1): the
+// uniform in [erf(-sqrt 2), erf(sqrt 2)) rounded once (XLA's FMA), then
+// sqrt(2) * erf_inv (XLA's Giles polynomial, its w < 5 branch: |u| stays
+// below erf(sqrt 2), so w below 2.5), clipped inside (-2, 2).
+inline float truncated_normal(float floats) {
+    const float lo = u2f(0xBF745A18u);  // erf(-2 / sqrt(2)) in float32
+    const float u = std::max(lo, fmaf(floats, -lo - lo, lo));
+    const float w = -xla_log1p(u * -u) - 2.5f;
+    float p = 2.81022636e-08f;
+    p = fmaf(p, w, 3.43273939e-07f);
+    p = fmaf(p, w, -3.5233877e-06f);
+    p = fmaf(p, w, -4.39150654e-06f);
+    p = fmaf(p, w, 0.00021858087f);
+    p = fmaf(p, w, -0.00125372503f);
+    p = fmaf(p, w, -0.00417768164f);
+    p = fmaf(p, w, 0.246640727f);
+    p = fmaf(p, w, 1.50140941f);
+    const float out = F(1.4142135623730951) * (p * u);
+    return std::min(std::max(out, u2f(0xBFFFFFFFu)), u2f(0x3FFFFFFFu));
+}
+
+#undef F
+
+}  // namespace flax
+
+extern "C" {
+
+// Values of the flat indices [start, start + n) of one kernel drawn from
+// the key (k0, k1): law 0 glorot_uniform (the uniform [-1, 1) draw), law 1
+// lecun_normal (the truncated normal), each times ``scale``.
+void ps_flax_draw(uint32_t k0, uint32_t k1, int law, float scale, int64_t start, int64_t n,
+                  float* out) {
+    const uint64_t first = static_cast<uint64_t>(start);
+    if (law == 0) {
+        for (int64_t i = 0; i < n; ++i) {
+            const float f = flax::unit(flax::bits(k0, k1, first + i));
+            out[i] = std::max(-1.0f, f * 2.0f + -1.0f) * scale;
+        }
+    } else {
+        for (int64_t i = 0; i < n; ++i)
+            out[i] = flax::truncated_normal(flax::unit(flax::bits(k0, k1, first + i))) * scale;
+    }
 }
 
 }  // extern "C"

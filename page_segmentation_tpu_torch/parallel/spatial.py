@@ -74,13 +74,13 @@ def measure_half_rf(module, height: int = 1024, width: int = 32, channels: int =
 
 def derived_margin(architecture, module=None) -> int:
     """The architecture's halo margin: its measured half receptive field
-    (``module``'s weights, or seeded random ones) rounded up to the stride
-    factor."""
+    (``module``'s weights, or flax's ``PRNGKey(0)`` draw, as the JAX package
+    measures it) rounded up to the stride factor."""
     if module is None:
-        from ..models.bridge import init_variables_numpy, params_from_jax
+        from ..models.bridge import init_variables, params_from_jax
 
         module = architecture.model(3)
-        module.load_state_dict(params_from_jax(init_variables_numpy(module, 0)))
+        module.load_state_dict(params_from_jax(init_variables(module, 0)))
     channels = 3 if architecture.preprocess()[1] else 1
     half = measure_half_rf(module, channels=channels)
     return round_up(half, architecture.stride_factor)
