@@ -9,8 +9,13 @@ checkout, holds every kernel against its plain PyTorch version on the card
 (the labeler also on tile-edge, checkerboard, ruled and ragged ink), times
 each one from the host, on the card alone (CUDA graph) and per pass
 (torch.profiler), and the host cost of each piece of the launch path,
-checks the bf16 forward against float32, and drives these paths, each with
-the kernels' launch counts set to 0 just before it and read just after:
+checks the bf16 forward against float32, holds ``jax.random``'s draws on
+the card against the JAX package's (``phase_random``: the dropout kernel's
+forward and backward at UNet's train-batch shapes, bit for bit with the
+plain version in float32 and bf16, masks, uniforms and flips against the
+digests in ``tests/jax_random_digests.json``, the UNet step loss against
+JAX's), and drives these paths, each with the kernels' launch counts set
+to 0 just before it and read just after:
 
 * the throughput predictor over synthetic 300-DPI A4 pages with the device
   cc-majority vote on the CUDA labeler;
@@ -38,7 +43,8 @@ the kernels' launch counts set to 0 just before it and read just after:
 * the training path: A4 pages with color masks written as PNGs, the CLI's
   ``create-dataset-file`` and ``train`` (3 epochs at batch 8), steady train
   steps timed on the card, one float32 step held against the CPU, and an
-  epoch with device augmentation;
+  epoch with device augmentation (its parameters drawn on the card by the
+  uniform kernel, 6 launches a step);
 * the other model families (UNet, ResUNet, ResNet50, MobileNetV2,
   EfficientNet-B0 and -B7 U-Nets) at their published widths on the
   throughput path with the device vote, each held against the CPU and
@@ -50,8 +56,10 @@ the kernels' launch counts set to 0 just before it and read just after:
   its copy on the card, EfficientNet-B7's draw within INIT_DRAW_LIMIT_S,
   and one throughput batch of mobile_net and effb0 from those weights with
   the device vote held against the plain labeler's;
-* the Trainer on mobile_net (BatchNorm) and unet (dropout) from their fresh
-  weights, with one float32 BatchNorm step held against the CPU;
+* the Trainer on mobile_net (BatchNorm) and unet (dropout, drawn by the
+  dropout kernel from the JAX trainer's key chain, 4 launches a step) from
+  their fresh weights, with one float32 BatchNorm step held against the
+  CPU;
 * several devices, on a mesh of this card twice (``phase_mesh``): the
   throughput cell with ``mesh=`` (K1 on every shard; trio byte-equal to no
   mesh), ``spatial_forward`` of a 6016x4096 page in two bands with halos
@@ -505,6 +513,155 @@ def phase_kernels(text_ink: np.ndarray, large_ink: np.ndarray):
     log(f"  host us per call on a 1x32x32 page over 2,000 calls: "
         + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
     return dict(main, max_abs_err=max_err, tiled=tiled, host_us=host)
+
+
+RANDOM_LAYERS = ("drop4", "drop5")  # UNet's dropouts at the train cell's batch (tests/jax_random_digests.json)
+RANDOM_TIMING_CALLS = 20
+
+
+def random_counts() -> dict:
+    """Launches of csrc/jax_random.cu's two kernels since the last reset."""
+    from page_segmentation_tpu_torch.ops import prng
+
+    return {"jax_dropout": prng.launches, "jax_uniform": prng.uniform_launches}
+
+
+def reset_random_counts():
+    from page_segmentation_tpu_torch.ops import prng
+
+    prng.launches = prng.uniform_launches = 0
+
+
+@backend_flags("random", NO_TF32)
+def phase_random():
+    """jax.random's draws on the card (``csrc/jax_random.cu``, ``ops/
+    prng.py``): at UNet's dropout shapes of the train cell's batch, the
+    kernel's forward and backward against the plain version, bit for bit,
+    in float32 and bf16; the kernel's and the plain version's masks,
+    uniforms and flips against the JAX draws frozen in
+    ``tests/jax_random_digests.json``; the float32 UNet step loss with
+    dropout (TF32 off) against JAX's; then the times of one UNet step's
+    dropout work (forward and backward of both layers, float32): the
+    kernel from the host and alone in a CUDA graph, the plain version,
+    ``torch.nn.functional.dropout`` at the same shapes (another RNG: the
+    library call of the same kind) and the byte bound; and of one
+    augmentation parameter draw (``uniform`` of TRAIN_BATCH values)."""
+    import torch.nn.functional as F
+
+    from page_segmentation_tpu_torch.ops import prng
+
+    frozen = tests_module("make_jax_random_digests")
+    want = frozen.load()
+    if frozen.UNET_BATCH[0] != TRAIN_BATCH:
+        raise AssertionError(f"the frozen masks are drawn for batch {frozen.UNET_BATCH}, "
+                             f"the train cell's batch is {TRAIN_BATCH}")
+    dev = torch.device(DEVICE)
+    layers = {name: (layer, tuple(shape), rate) for name, layer, shape, rate in frozen.MASKS}
+    keys = {name: prng.fold_in_static(prng.prng_key(frozen.SEED), (layer, 1))
+            for name, (layer, _, _) in layers.items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    max_err = 0.0
+
+    def hold(what, got, plain):
+        nonlocal max_err
+        torch.cuda.synchronize()
+        if got.shape != plain.shape or got.dtype != plain.dtype or not torch.equal(got, plain):
+            raise AssertionError(f"{what}: the kernel differs from the plain version")
+        max_err = max(max_err, float((got.double() - plain.double()).abs().max()))
+
+    for name in RANDOM_LAYERS:
+        _, shape, rate = layers[name]
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype).requires_grad_(True)
+            dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            y = prng.dropout(x, rate, keys[name])
+            (dx,) = torch.autograd.grad(y, x, dy)
+            hold(f"{name} {dtype} forward", y.detach(), prng.dropout_plain(x.detach(), keys[name], rate))
+            hold(f"{name} {dtype} backward", dx, prng.dropout_plain(dy, keys[name], rate))
+            kept = float((y != 0).float().mean())
+            log(f"  {name} {tuple(shape)} {dtype}: forward and backward kernel == plain, bit for bit; "
+                f"kept {kept:.5f} at rate {rate}")
+
+    def kernel_dropout(x, key, rate):
+        return prng._dropout_cuda(x, key, rate)
+
+    def plain_uniform(key, shape, lo, hi, device):
+        return prng.uniform_plain(key, shape, lo, hi, device)
+
+    def plain_bernoulli(key, p, shape, device):
+        return plain_uniform(key, shape, 0.0, 1.0, device) < torch.tensor(np.float32(p), device=device)
+
+    for label, dropout_fn, uniform_fn, bernoulli_fn in (
+            ("kernel", kernel_dropout, prng.uniform, prng.bernoulli),
+            ("plain", lambda x, key, rate: prng.dropout_plain(x, key, rate), plain_uniform, plain_bernoulli)):
+        for dtype in (torch.float32, torch.bfloat16):
+            if frozen.port_masks(dropout_fn, dtype, dev) != want["masks"]:
+                raise AssertionError(f"{label} {dtype}: masks differ from the JAX digests")
+        uniform, flips = frozen.port_uniforms(uniform_fn, bernoulli_fn, dev)
+        if uniform != want["uniform"] or flips != want["bernoulli"]:
+            raise AssertionError(f"{label}: uniform or bernoulli differ from the JAX digests")
+    big = frozen.UNIFORMS[-1]
+    big_key = frozen.uniform_key(len(frozen.UNIFORMS) - 1)
+    hold("uniform", prng.uniform(big_key, (big[3],), big[1], big[2], dev),
+         plain_uniform(big_key, (big[3],), big[1], big[2], dev))
+    log(f"  masks ({', '.join(m[0] for m in frozen.MASKS)}; float32 and bf16), uniforms "
+        f"({', '.join(u[0] for u in frozen.UNIFORMS)}) and flips: kernel and plain == the JAX digests")
+
+    loss, loss_plain = frozen.port_unet_loss(dev), frozen.port_unet_loss(dev, dropout=False)
+    step = want["unet_step"]
+    rel = {"loss_rel": abs(loss - step["loss"]) / step["loss"],
+           "loss_without_dropout_rel": abs(loss_plain - step["loss_without_dropout"]) / step["loss_without_dropout"],
+           "dropout_moves_loss_rel": abs(step["loss"] - step["loss_without_dropout"]) / step["loss"]}
+    log(f"  UNet float32 step on the card (TF32 off): loss {loss:.8f} vs JAX {step['loss']:.8f} "
+        f"(rel {rel['loss_rel']:.3e}); without dropout {loss_plain:.8f} vs {step['loss_without_dropout']:.8f} "
+        f"(rel {rel['loss_without_dropout_rel']:.3e}); dropout moves JAX's loss by {rel['dropout_moves_loss_rel']:.3e}")
+    if rel["loss_rel"] > 1e-5 or rel["loss_without_dropout_rel"] > 1e-5:
+        raise AssertionError(f"UNet step loss on the card vs JAX: {rel}")
+
+    # one UNet step's dropout work: forward and backward of both layers, float32
+    xs = {name: torch.randn(layers[name][1], generator=gen, device=dev) for name in RANDOM_LAYERS}
+    dys = {name: torch.randn(layers[name][1], generator=gen, device=dev) for name in RANDOM_LAYERS}
+
+    def step_with(fn):
+        def run():
+            for name in RANDOM_LAYERS:
+                rate = layers[name][2]
+                fn(xs[name], keys[name], rate)
+                fn(dys[name], keys[name], rate)
+        return run
+
+    def library(x, key, rate):
+        return F.dropout(x, rate, training=True)
+
+    fns = {"kernel": step_with(kernel_dropout), "plain": step_with(prng.dropout_plain),
+           "library": step_with(library)}
+    times = cuda_ms_per_call(fns, calls=RANDOM_TIMING_CALLS, rounds=5)
+    device_ms = graph_ms_per_call(fns["kernel"], calls=RANDOM_TIMING_CALLS)
+    elements = sum(int(np.prod(layers[name][1])) for name in RANDOM_LAYERS)
+    bound_ms = 2 * elements * (4 + 4) / HBM_BYTES_PER_S * 1e3  # x and dy read once, y and dx written once
+    dropout = {"shape": {name: list(layers[name][1]) for name in RANDOM_LAYERS},
+               "launches_per_unet_step": 2 * len(RANDOM_LAYERS), "ms": times["kernel"],
+               "device_ms": device_ms, "plain_ms": times["plain"], "library_ms": times["library"],
+               "bound_ms": bound_ms, "max_abs_err": max_err, "unet_step_vs_jax": rel}
+    log(f"phase random: one UNet step's dropout (4 launches over {elements:,} float32 elements a pass): "
+        f"kernel {times['kernel']:.4f} ms from the host, {device_ms:.4f} ms alone in a CUDA graph; plain "
+        f"{times['plain']:.3f} ms; F.dropout x4 {times['library']:.4f} ms; byte bound {bound_ms:.4f} ms "
+        f"({device_ms / bound_ms:.2f}x)")
+
+    # one augmentation parameter draw: TRAIN_BATCH uniforms
+    u_key = frozen.uniform_key(0)
+    u_fns = {"kernel": lambda: prng.uniform(u_key, (TRAIN_BATCH,), -2.5, 2.5, dev),
+             "plain": lambda: plain_uniform(u_key, (TRAIN_BATCH,), -2.5, 2.5, dev),
+             "library": lambda: torch.rand(TRAIN_BATCH, device=dev)}
+    u_times = cuda_ms_per_call(u_fns, calls=200, rounds=5)
+    uniform = {"shape": [TRAIN_BATCH], "ms": u_times["kernel"],
+               "device_ms": graph_ms_per_call(u_fns["kernel"], calls=200),
+               "plain_ms": u_times["plain"], "library_ms": u_times["library"],
+               "bound_ms": TRAIN_BATCH * 4 / HBM_BYTES_PER_S * 1e3, "max_abs_err": max_err}
+    log(f"  uniform of {TRAIN_BATCH} values (one augmentation parameter): kernel {u_times['kernel']:.4f} ms "
+        f"from the host, {uniform['device_ms']:.5f} ms in a graph; plain {u_times['plain']:.4f} ms; "
+        f"torch.rand {u_times['library']:.4f} ms; byte bound {uniform['bound_ms']:.2e} ms")
+    return {"dropout": dropout, "uniform": uniform}
 
 
 @backend_flags("forward", NO_TF32)
@@ -1803,6 +1960,7 @@ def phase_train(pages, binaries, work: str):
     from page_segmentation_tpu_torch.models.fcn import FCNSkip
     from page_segmentation_tpu_torch.models.registry import Architecture, Optimizers
     from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
+    from page_segmentation_tpu_torch.ops.prng import prng_key
     from page_segmentation_tpu_torch.train import trainer as trainer_module
     from page_segmentation_tpu_torch.train.checkpoint import load_checkpoint, load_opt_state
     from page_segmentation_tpu_torch.train.metrics import loss as ce_loss
@@ -1836,6 +1994,7 @@ def phase_train(pages, binaries, work: str):
             built.append(self)
 
     cuda_cc.launches = cuda_add_one.launches = 0
+    reset_random_counts()
     torch.cuda.reset_peak_memory_stats()
     trainer_module.Trainer, plain_trainer = Recorded, trainer_module.Trainer
     t0 = time.perf_counter()
@@ -1847,7 +2006,7 @@ def phase_train(pages, binaries, work: str):
     finally:
         trainer_module.Trainer = plain_trainer
     cli_s = time.perf_counter() - t0
-    launches = {"cc_label": cuda_cc.launches, "add_one": cuda_add_one.launches}
+    launches = {"cc_label": cuda_cc.launches, "add_one": cuda_add_one.launches, **random_counts()}
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     loader_s, trainer = built[0] - t0, built[1]
     with open(os.path.join(out, "scalars.jsonl")) as f:
@@ -1856,7 +2015,7 @@ def phase_train(pages, binaries, work: str):
     if rc != 0 or len(losses) != TRAIN_EPOCHS or not losses[-1] < losses[0]:
         raise AssertionError(f"train returned {rc}, epoch losses {losses}")
     if any(launches.values()):
-        raise AssertionError(f"kernels launched on the train path: {launches}")
+        raise AssertionError(f"kernels launched on the train path (FCNSkip, no dropout): {launches}")
     epochs = [{"epoch": t["epoch"], "pages_per_s": t["pages"] / t["train_s"], "train_s": t["train_s"],
                "val_s": t["eval_s"], "checkpoint_s": t["save_s"]} for t in trainer.timings]
     log(f"  train CLI: {cli_s:.2f} s in all, loader {loader_s:.2f} s; epoch losses "
@@ -1967,14 +2126,21 @@ def phase_train(pages, binaries, work: str):
     aug_settings = trainer.settings._replace(n_epoch=1, data_augmentation=True, device_augmentation=True,
                                              validation_data=None, evaluation_data=None,
                                              output_dir=os.path.join(work, "train_aug"))
+    cuda_cc.launches = cuda_add_one.launches = 0
+    reset_random_counts()
     t0 = time.perf_counter()
     aug_history = plain_trainer(aug_settings).train()
     torch.cuda.synchronize()
     aug_s = time.perf_counter() - t0
+    aug_launches = {"cc_label": cuda_cc.launches, "add_one": cuda_add_one.launches, **random_counts()}
+    # each step draws the 6 affine parameters (flips off), one uniform launch each
+    want_aug = {"cc_label": 0, "add_one": 0, "jax_dropout": 0,
+                "jax_uniform": 6 * -(-(TRAIN_PAGES - n_test) // TRAIN_BATCH)}
+    if aug_launches != want_aug:
+        raise AssertionError(f"device augmentation epoch launches {aug_launches}, expected {want_aug}")
     images = trainer.preprocess(host["image"].astype(np.float32))
     fimage = torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(DEVICE)
-    generator = torch.Generator(device=DEVICE).manual_seed(SEED)
-    _, binary_a, mask_a = augment_batch_on_device(generator, fimage, batch["binary"], batch["mask"],
+    _, binary_a, mask_a = augment_batch_on_device(prng_key(SEED), fimage, batch["binary"], batch["mask"],
                                                   DeviceAugmentConfig(horizontal_flip=True))
     for i in range(mask_a.shape[0]):
         if not set(mask_a[i].unique().tolist()) <= set(batch["mask"][i].unique().tolist()):
@@ -1983,7 +2149,8 @@ def phase_train(pages, binaries, work: str):
     if not (torch.equal(_warp(batch["mask"], identity, 0), batch["mask"])
             and torch.equal(_warp(fimage[..., 0], identity, 1), fimage[..., 0])):
         raise AssertionError("the identity warp changed its input")
-    log(f"  device augmentation: one epoch in {aug_s:.2f} s, loss {aug_history['loss'][0]:.5f}; warped "
+    log(f"  device augmentation: one epoch in {aug_s:.2f} s, loss {aug_history['loss'][0]:.5f}, launches "
+        f"{aug_launches} (the affine's parameters drawn on the card from the JAX key chain); warped "
         f"mask classes within each page's, identity warp exact")
     phase_s = time.perf_counter() - t_phase
     log(f"  phase train: {phase_s:.1f} s")
@@ -1995,7 +2162,8 @@ def phase_train(pages, binaries, work: str):
             "steady_pages_per_s": TRAIN_BATCH / step_ms * 1e3, "batch_build_ms": min(build_ms),
             "upload_ms": min(upload_ms), "batch_shape": list(shape), "losses": losses,
             "card_vs_cpu": {"loss_rel": loss_rel, "grad_rel_max": grad_rel, "grad_rel_max_leaf": worst}, "tf32": tf32,
-            "device_augmentation_epoch_s": aug_s, "trainer": trainer}
+            "device_augmentation_epoch_s": aug_s, "device_augmentation_launches": aug_launches,
+            "trainer": trainer}
 
 
 def family_gflop_per_page(arch, channels: int, shape) -> float:
@@ -2192,17 +2360,23 @@ def phase_families(pages, binaries, work: str):
             "library_agreement": float(agree.mean())}
 
 
-def frozen_digests():
-    """``tests/make_flax_init_digests.py``, loaded from its file: the frozen
-    file's path, its leaf walk and its comparison (no JAX at import)."""
+def tests_module(name: str):
+    """``tests/<name>.py``, loaded from its file (the digest makers import
+    no JAX at module level): its frozen file's path and its helpers."""
     import importlib.util
     import os
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "make_flax_init_digests.py")
-    spec = importlib.util.spec_from_file_location("make_flax_init_digests", path)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def frozen_digests():
+    """``tests/make_flax_init_digests.py``: the frozen file's path, its leaf
+    walk and its comparison."""
+    return tests_module("make_flax_init_digests")
 
 
 @backend_flags("init")
@@ -2318,15 +2492,18 @@ def phase_train_families(trainer, work: str):
     data at batch TRAIN_BATCH for FAMILY_EPOCHS epochs at FAMILY_LR, float32
     with TF32 as PyTorch sets it: the BatchNorm statistics calibrated by one step with
     momentum 0 and saved as the start checkpoint; epoch times, peak memory,
-    steady train_step ms; for the BatchNorm family one float32 step (TF32
-    off) on the card against the CPU from that checkpoint: loss, gradients
-    and updated batch_stats."""
+    steady train_step ms; UNet's dropout drawn by csrc/jax_random.cu from
+    the JAX trainer's key chain, 4 launches a step (2 forward, 2 backward),
+    on the batch whose masks phase_random held against JAX; for the
+    BatchNorm family one float32 step (TF32 off) on the card against the
+    CPU from that checkpoint: loss, gradients and updated batch_stats."""
     import os
 
     from page_segmentation_tpu_torch.models.bridge import params_from_jax
     from page_segmentation_tpu_torch.models.layers import BatchNorm
     from page_segmentation_tpu_torch.models.registry import Architecture, Optimizers
     from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
+    from page_segmentation_tpu_torch.ops.prng import prng_key, split
     from page_segmentation_tpu_torch.train import trainer as trainer_module
     from page_segmentation_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
     from page_segmentation_tpu_torch.train.metrics import loss as ce_loss
@@ -2334,6 +2511,8 @@ def phase_train_families(trainer, work: str):
 
     train_pages = trainer.settings.train_data.data
     results, launches = {}, {"cc_label": 0, "add_one": 0}
+    random_launches = {}
+    unet_batch = tuple(tests_module("make_jax_random_digests").UNET_BATCH)
     for name in TRAIN_FAMILIES:
         arch = Architecture(name)
         out = os.path.join(work, f"train_{name}")
@@ -2356,6 +2535,7 @@ def phase_train_families(trainer, work: str):
                         {"architecture": name, "n_classes": 3})
 
         cuda_cc.launches = cuda_add_one.launches = 0
+        reset_random_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         history = run.train()
@@ -2363,6 +2543,14 @@ def phase_train_families(trainer, work: str):
         train_s, peak_mib = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2 ** 20
         launches["cc_label"] += cuda_cc.launches
         launches["add_one"] += cuda_add_one.launches
+        random_launches[name] = random_counts()
+        steps = FAMILY_EPOCHS * -(-len(train_pages) // TRAIN_BATCH)
+        want_random = {"jax_dropout": 4 * steps if name == "unet" else 0, "jax_uniform": 0}
+        if random_launches[name] != want_random:
+            raise AssertionError(f"{name}: jax_random launches {random_launches[name]}, expected {want_random}")
+        if name == "unet" and tuple(batch["image"].shape[:3]) != unet_batch:
+            raise AssertionError(f"unet train batch {tuple(batch['image'].shape)}: phase_random held the "
+                                 f"masks of batch {unet_batch}")
         losses = history["loss"]
         if len(losses) != FAMILY_EPOCHS or not np.isfinite(losses).all():
             raise AssertionError(f"{name}: epoch losses {losses}")
@@ -2372,16 +2560,18 @@ def phase_train_families(trainer, work: str):
         epochs = [{"epoch": t["epoch"], "pages_per_s": t["pages"] / t["train_s"], "val_s": t["eval_s"],
                    "checkpoint_s": t["save_s"]} for t in run.timings]
 
-        # steady steps on one uploaded batch (UNet's dropout from a generator)
+        # steady steps on one uploaded batch (UNet's dropout from the key chain)
         params, state, opt = dict(run._live()), dict(run._live_state()), run.opt_state
-        dropout_rng = torch.Generator(device=DEVICE).manual_seed(SEED)
+        chain = prng_key(SEED)
         for _ in range(3):
-            params, state, opt, _ = run._train_step(params, state, opt, batch, dropout_rng)
+            chain, step_key = split(chain)
+            params, state, opt, _ = run._train_step(params, state, opt, batch, step_key)
         torch.cuda.synchronize()
         start_event, end_event = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start_event.record()
         for _ in range(FAMILY_STEADY_STEPS):
-            params, state, opt, _ = run._train_step(params, state, opt, batch, dropout_rng)
+            chain, step_key = split(chain)
+            params, state, opt, _ = run._train_step(params, state, opt, batch, step_key)
             run._assign(params, state)
         end_event.record()
         torch.cuda.synchronize()
@@ -2390,7 +2580,7 @@ def phase_train_families(trainer, work: str):
         def steps():
             state_ = (params, state, opt)
             for _ in range(5):
-                p_, s_, o_, _ = run._train_step(*state_, batch, dropout_rng)
+                p_, s_, o_, _ = run._train_step(*state_, batch, step_key)
                 state_ = (p_, s_, o_)
 
         wall_us, busy_us, by_name, _ = profiled(steps)
@@ -2399,12 +2589,14 @@ def phase_train_families(trainer, work: str):
                          "epochs": epochs, "peak_mib": peak_mib, "step_ms": step_ms,
                          "step_device_busy_ms": busy_us / 5e3,
                          "step_top_kernels_ms": {k[:80]: us / 5e3 for k, us in top},
-                         "batch_shape": list(batch["image"].shape), "checkpoint_epoch": meta.get("epoch")}
+                         "batch_shape": list(batch["image"].shape), "checkpoint_epoch": meta.get("epoch"),
+                         "jax_random_launches": random_launches[name]}
         log(f"phase train families {name}: {FAMILY_EPOCHS} epochs in {train_s:.2f} s, losses "
             f"{[round(v, 5) for v in losses]}; epochs " + ", ".join(
                 f"{e['pages_per_s']:.2f} pages/s" for e in epochs)
             + f"; peak CUDA memory {peak_mib:.1f} MiB; steady train_step at batch {TRAIN_BATCH} on "
-            f"{tuple(batch['image'].shape)}: {step_ms:.3f} ms; checkpoint holds {sorted(variables)}")
+            f"{tuple(batch['image'].shape)}: {step_ms:.3f} ms; checkpoint holds {sorted(variables)}; "
+            f"jax_random launches {random_launches[name]}")
         log(f"  profile of 5 steps: device busy {busy_us / 5e3:.3f} ms a step of {wall_us / 5e3:.3f} ms, "
             f"{len(by_name)} kernel names; top: " + "; ".join(f"{us / 5e3:.3f} ms {k[:70]}" for k, us in top))
 
@@ -2443,7 +2635,8 @@ def phase_train_families(trainer, work: str):
             raise AssertionError(f"{name} card vs CPU step: {check}")
     if any(launches.values()):
         raise AssertionError(f"kernels launched on the families' train path: {launches}")
-    return {"families": results, "launches": launches}
+    random_total = {k: sum(r[k] for r in random_launches.values()) for k in random_counts()}
+    return {"families": results, "launches": {**launches, **random_total}}
 
 
 @backend_flags("mesh", {"cudnn.deterministic": True})
@@ -2950,28 +3143,48 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.2f} s")
 
     kernel = phase_kernels(text_ink, large_ink)
+    random = phase_random()
+    # csrc/jax_random.cu's launches on each phase that has no count of its own
+    random_by_path = {}
+
+    def counted(path, fn, *args):
+        reset_random_counts()
+        out = fn(*args)
+        random_by_path[path] = random_counts()
+        return out
+
     state = params_from_jax(init_params_numpy(3, SEED))
     phase_forward(state, native.decimate_u8(pages[:4], HOST_DECIMATE))
-    launches, tp = phase_main_path(state, pages, binaries)
+    launches, tp = counted("throughput", phase_main_path, state, pages, binaries)
     if profile:
         phase_profile(tp, pages, binaries)
-    add_one = phase_repro_download()
-    library = phase_library(pages, binaries)
+    add_one = counted("repro_download", phase_repro_download)
+    library = counted("library", phase_library, pages, binaries)
     work = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
     try:
-        corpus = phase_corpus(pages, binaries, work)
-        segment = phase_segment(work)
-        options = phase_options(pages, binaries, corpus["model"], work)
-        serve = phase_serve(pages, corpus["model"])
+        corpus = counted("corpus", phase_corpus, pages, binaries, work)
+        segment = counted("segment", phase_segment, work)
+        options = counted("options", phase_options, pages, binaries, corpus["model"], work)
+        serve = counted("serve", phase_serve, pages, corpus["model"])
         train = phase_train(pages, binaries, work)
-        families = phase_families(pages, binaries, work)
-        init = phase_init(pages, binaries)
+        families = counted("families", phase_families, pages, binaries, work)
+        init = counted("init", phase_init, pages, binaries)
         trainer = train.pop("trainer")
         train_families = phase_train_families(trainer, work)
-        mesh = phase_mesh(pages, binaries, corpus["model"], trainer.settings, work)
-        quality = phase_quality(work)
+        mesh = counted("mesh", phase_mesh, pages, binaries, corpus["model"], trainer.settings, work)
+        quality = counted("quality", phase_quality, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    for name in ("jax_dropout", "jax_uniform"):
+        by_path = {**{path: c[name] for path, c in random_by_path.items()},
+                   "train": train["launches"][name],
+                   "train_device_augmentation": train["device_augmentation_launches"][name],
+                   "families_train": train_families["launches"][name]}
+        random["dropout" if name == "jax_dropout" else "uniform"]["launches_by_path"] = by_path
+    main_launches = {"jax_dropout": train_families["launches"]["jax_dropout"],
+                     "jax_uniform": train["device_augmentation_launches"]["jax_uniform"]}
+    if not all(main_launches.values()):
+        raise AssertionError(f"a jax_random kernel was not launched on its path: {main_launches}")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log("entry points: " + json.dumps({
@@ -2990,6 +3203,7 @@ def main(argv=None) -> int:
     log("families: " + json.dumps(families["families"]))
     log("init: " + json.dumps({k: v for k, v in init.items() if k != "launches"}))
     log("training families: " + json.dumps(train_families["families"]))
+    log("random: " + json.dumps(random))
     family_launches = sum(f["cc_label_launches"] for f in families["families"].values())
     print(json.dumps({"kernels": [{
         "name": "cc_label",
@@ -3052,6 +3266,24 @@ def main(argv=None) -> int:
         "graph_ms": {"kernel": add_one["graph_ms"], "plain": add_one["plain_graph_ms"],
                      "library": add_one["library_graph_ms"]},
         "host_us": add_one["host_us"],
+    }, {
+        "name": "jax_dropout",
+        "route": "cuda",
+        "source": "page_segmentation_tpu_torch/csrc/jax_random.cu",
+        "replaces": None,
+        "computes": "flax nn.Dropout's mask and scale (models/unet.py:37,41), forward and backward",
+        "launches": main_launches["jax_dropout"],
+        **random["dropout"],
+        "bound_by": "bytes",
+    }, {
+        "name": "jax_uniform",
+        "route": "cuda",
+        "source": "page_segmentation_tpu_torch/csrc/jax_random.cu",
+        "replaces": None,
+        "computes": "jax.random.uniform of the device augmentation (data/augment_device.py:38-52)",
+        "launches": main_launches["jax_uniform"],
+        **random["uniform"],
+        "bound_by": "bytes",
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

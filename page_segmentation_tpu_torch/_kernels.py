@@ -92,6 +92,7 @@ NVCC_FLAGS = (
 KERNELS: Dict[str, LibrarySpec] = {
     "cc_label": LibrarySpec("cc_label", _nvcc, NVCC_FLAGS, ("csrc/cc_label.cu",)),
     "add_one": LibrarySpec("add_one", _nvcc, NVCC_FLAGS, ("csrc/add_one.cu",)),
+    "jax_random": LibrarySpec("jax_random", _nvcc, NVCC_FLAGS, ("csrc/jax_random.cu",)),
 }
 
 _lock = threading.Lock()

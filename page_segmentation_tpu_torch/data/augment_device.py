@@ -2,20 +2,29 @@
 ``device_augmentation``).
 
 Counterpart of ``page_segmentation_tpu/data/augment_device.py``, as torch
-ops on the batch's device: one random affine per page, drawn from an
-explicit ``torch.Generator`` on that device (the JAX package draws from a
-PRNG key), shared by the image (bilinear), the binary and the mask
-(nearest), with the ``nearest`` fill (source coordinates clamped to the
-page).  Parameter semantics are the host path's (``data/augment.py``); the
-image interpolation is bilinear instead of the cubic spline.  Plain
-PyTorch: the JAX package has no Pallas kernel here.
+ops on the batch's device: one random affine per page, drawn from a JAX
+key as the JAX function draws it (``ops/prng.py``: ``split(key, 3)`` into
+the matrices' key and the two flips' keys, ``split(key_mat, 6)`` into
+θ, tx, ty, shear, zx, zy, each a ``jax.random.uniform`` of the batch's
+pages, the flips ``bernoulli(0.5)``; the uniform kernel on the card, so the
+parameters never leave it), shared by the image (bilinear), the binary and
+the mask (nearest), with the ``nearest`` fill (source coordinates clamped
+to the page).  Parameter semantics are the host path's (``data/augment.py``);
+the image interpolation is bilinear instead of the cubic spline.  A shard
+of a mesh batch takes its rows of the draw for the whole batch, as the JAX
+function runs once over the sharded batch.
 """
 from __future__ import annotations
 
-import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
+
+from ..ops.prng import Key, bernoulli, split, uniform
+
+# jnp.deg2rad's factor, rounded to float32 as JAX rounds it
+_DEG2RAD = float(np.float32(np.pi / 180))
 
 
 class DeviceAugmentConfig(NamedTuple):
@@ -29,23 +38,23 @@ class DeviceAugmentConfig(NamedTuple):
     vertical_flip: bool = False
 
 
-def _uniform(generator: torch.Generator, n: int, low: float, high: float, device) -> torch.Tensor:
-    return torch.rand(n, generator=generator, device=device) * (high - low) + low
-
-
-def _sample_matrices(generator: torch.Generator, n: int, h: int, w: int,
-                     cfg: DeviceAugmentConfig, device=None) -> torch.Tensor:
+def _sample_matrices(key: Key, n: int, h: int, w: int, cfg: DeviceAugmentConfig,
+                     device="cpu") -> torch.Tensor:
     """(n, 2, 3) float32 maps from output to input (row, col) coordinates,
     Keras' composition about the page centre."""
-    device = device if device is not None else generator.device
-    theta = _uniform(generator, n, -cfg.rotation_range, cfg.rotation_range, device) * (math.pi / 180)
-    tx = _uniform(generator, n, -cfg.height_shift_range, cfg.height_shift_range, device) * (
+    keys = split(key, 6)
+
+    def draw(i, low, high):
+        return uniform(keys[i], (n,), low, high, device)
+
+    theta = draw(0, -cfg.rotation_range, cfg.rotation_range) * _DEG2RAD
+    tx = draw(1, -cfg.height_shift_range, cfg.height_shift_range) * (
         h if cfg.height_shift_range < 1 else 1.0)
-    ty = _uniform(generator, n, -cfg.width_shift_range, cfg.width_shift_range, device) * (
+    ty = draw(2, -cfg.width_shift_range, cfg.width_shift_range) * (
         w if cfg.width_shift_range < 1 else 1.0)
-    shear = _uniform(generator, n, -cfg.shear_range, cfg.shear_range, device) * (math.pi / 180)
-    zx = _uniform(generator, n, cfg.zoom_min, cfg.zoom_max, device)
-    zy = _uniform(generator, n, cfg.zoom_min, cfg.zoom_max, device)
+    shear = draw(3, -cfg.shear_range, cfg.shear_range) * _DEG2RAD
+    zx = draw(4, cfg.zoom_min, cfg.zoom_max)
+    zy = draw(5, cfg.zoom_min, cfg.zoom_max)
 
     cos_t, sin_t = torch.cos(theta), torch.sin(theta)
     # rotation @ shift @ shear @ zoom in (x, y): the affine's two rows
@@ -97,24 +106,28 @@ def _warp(img: torch.Tensor, mat: torch.Tensor, order: int) -> torch.Tensor:
     return top * (1 - fr) + bottom * fr
 
 
-def augment_batch_on_device(generator: torch.Generator, images: torch.Tensor,
-                            binaries: torch.Tensor, masks: torch.Tensor,
-                            cfg: DeviceAugmentConfig):
-    """One shared random affine per page across the triple.
+def augment_batch_on_device(key: Key, images: torch.Tensor, binaries: torch.Tensor,
+                            masks: torch.Tensor, cfg: DeviceAugmentConfig, offset: int = 0,
+                            total: Optional[int] = None):
+    """One shared random affine per page across the triple, drawn from
+    ``key`` as the JAX function draws it.
 
     images (N, H, W, C) float32, binaries (N, H, W) uint8, masks (N, H, W)
-    integer, all on the generator's device.  The image warps bilinear, the
-    binary and mask nearest; the flips are drawn per page when enabled."""
+    integer, all on one device.  The image warps bilinear, the binary and
+    mask nearest; the flips are drawn per page when enabled.  The pages are
+    rows ``offset .. offset + N`` of a batch of ``total`` pages (default N):
+    each takes its row's draw."""
     n, h, w = images.shape[:3]
-    mats = _sample_matrices(generator, n, h, w, cfg, images.device)
+    total = n if total is None else total
+    rows = slice(offset, offset + n)
+    key_mat, key_flip_h, key_flip_v = split(key, 3)
+    mats = _sample_matrices(key_mat, total, h, w, cfg, images.device)[rows]
     img_out = torch.stack([_warp(images[..., c], mats, 1) for c in range(images.shape[-1])], dim=-1)
     bin_out = _warp(binaries, mats, 0)
     mask_out = _warp(masks, mats, 0)
-    flips_h = torch.rand(n, generator=generator, device=images.device) < 0.5
-    flips_v = torch.rand(n, generator=generator, device=images.device) < 0.5
-    for enabled, flips, dim in ((cfg.horizontal_flip, flips_h, 2), (cfg.vertical_flip, flips_v, 1)):
+    for enabled, flip_key, dim in ((cfg.horizontal_flip, key_flip_h, 2), (cfg.vertical_flip, key_flip_v, 1)):
         if enabled:
-            pick = flips.view(n, 1, 1)
+            pick = bernoulli(flip_key, 0.5, (total,), images.device)[rows].view(n, 1, 1)
             img_out = torch.where(pick[..., None], img_out.flip(dim), img_out)
             bin_out = torch.where(pick, bin_out.flip(dim), bin_out)
             mask_out = torch.where(pick, mask_out.flip(dim), mask_out)

@@ -4,8 +4,9 @@ The JAX package draws a fresh model's weights with ``module.init`` from
 ``jax.random.PRNGKey(seed)``.  This module repeats that draw, bit for bit,
 for any tree of convolution kernels:
 
-* the key: JAX's threefry-2x32 PRNG (20 rounds); ``PRNGKey(seed)`` is the
-  pair (0, seed & 0xffffffff), JAX's key without 64-bit mode;
+* the key: JAX's threefry-2x32 PRNG (20 rounds, ``ops/prng.py``);
+  ``PRNGKey(seed)`` is the pair (0, seed & 0xffffffff), JAX's key without
+  64-bit mode;
 * each parameter's key: flax appends each module's name to its scope's rng
   suffix and ``make_rng("params")`` appends the scope's own parameter
   counter (1 for ``kernel``, the first parameter every conv makes); the
@@ -39,14 +40,13 @@ Biases, BatchNorm scales and statistics are constants and drawn by nobody
 """
 from __future__ import annotations
 
-import hashlib
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-Key = Tuple[np.uint32, np.uint32]
+from ..ops.prng import fold_in_static, prng_key
 
 GLOROT_UNIFORM = "glorot_uniform"
 LECUN_NORMAL = "lecun_normal"
@@ -56,46 +56,6 @@ LAWS = (GLOROT_UNIFORM, LECUN_NORMAL)  # ps_flax_draw's ``law`` is the index
 KERNEL_COUNT = 1
 
 _CHUNK = 1 << 18
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-
-
-def threefry2x32(key: Key, x0: np.ndarray, x1: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """JAX's threefry-2x32 hash of the uint32 counter words ``(x0, x1)``."""
-    ks = (np.uint32(key[0]), np.uint32(key[1]),
-          np.uint32(key[0]) ^ np.uint32(key[1]) ^ np.uint32(0x1BD11BDA))
-    with np.errstate(over="ignore"):
-        x0 = x0.astype(np.uint32) + ks[0]
-        x1 = x1.astype(np.uint32) + ks[1]
-        for i in range(5):
-            for r in _ROTATIONS[i % 2]:
-                x0 = x0 + x1
-                x1 = (x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))
-                x1 = x1 ^ x0
-            x0 = x0 + ks[(i + 1) % 3]
-            x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
-    return x0, x1
-
-
-def prng_key(seed: int) -> Key:
-    """``jax.random.PRNGKey(seed)`` without 64-bit mode: the seed's low 32
-    bits behind a zero word."""
-    return np.uint32(0), np.uint32(seed & 0xFFFFFFFF)
-
-
-def fold_in(key: Key, data: int) -> Key:
-    y0, y1 = threefry2x32(key, np.zeros(1, np.uint32), np.array([data], np.uint32))
-    return y0[0], y1[0]
-
-
-def fold_in_static(key: Key, data) -> Key:
-    """flax's fold of static names and counters into ``key``."""
-    if not data:
-        return key
-    digest = hashlib.sha1()
-    for x in data:
-        digest.update(x.encode() if isinstance(x, str)
-                      else x.to_bytes((x.bit_length() + 7) // 8, "big"))
-    return fold_in(key, int.from_bytes(digest.digest()[:4], "big"))
 
 
 def scale(law: str, shape) -> np.float32:

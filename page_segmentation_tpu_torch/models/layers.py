@@ -37,7 +37,8 @@ drifts from the JAX modules' by ~0.1 %.  Convolutions are library calls
 Training mode is torch's ``module.training`` (the JAX modules'
 ``train=True``): :class:`BatchNorm` then normalizes with the batch's
 statistics and leaves its new running statistics in ``updated_stats``
-for ``train/steps.py`` to collect, and dropout draws its mask.
+for ``train/steps.py`` to collect, and dropout draws its mask from the
+dropout key (``ops/prng.py``), as flax's ``make_rng("dropout")`` does.
 """
 from __future__ import annotations
 
@@ -47,6 +48,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import prng
+from ..ops.prng import dropout  # noqa: F401  flax nn.Dropout under its layer's key
 from .flax_init import GLOROT_UNIFORM
 
 
@@ -202,15 +205,6 @@ def upsample2x(x):
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
-def dropout(x, rate: float, generator: Optional[torch.Generator] = None):
-    """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
-    (a uniform draw below it, from ``generator``) and scale the kept ones by
-    ``1 / (1 - rate)``."""
-    keep_prob = 1.0 - rate
-    draw = torch.rand(x.shape, generator=generator, device=x.device)
-    return torch.where(draw < keep_prob, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
-
-
 def gray_to_rgb(x):
     """Channel-replicate a gray NHWC tensor to 3 channels (a 3-channel one
     passes through)."""
@@ -241,14 +235,14 @@ class Padding2D(nn.Module):
 class Segmenter(nn.Module):
     """A per-pixel classifier: ``forward_nchw(x, dropout_rng=None)`` maps
     (N, C, H, W) to float32 logits (N, n_classes, H, W); ``forward`` does the
-    same on NHWC, like the JAX modules.  ``dropout_rng`` (a
-    ``torch.Generator``) drives the dropout of a model that has it, in
-    training mode only."""
+    same on NHWC, like the JAX modules.  ``dropout_rng`` (a ``ops/prng.py``
+    key, the JAX step's ``rngs={"dropout": key}``) drives the dropout of a
+    model that has it, in training mode only; None draws no dropout."""
 
-    def forward_nchw(self, x, dropout_rng: Optional[torch.Generator] = None):
+    def forward_nchw(self, x, dropout_rng: Optional[prng.Key] = None):
         raise NotImplementedError
 
-    def forward(self, image, dropout_rng: Optional[torch.Generator] = None):
+    def forward(self, image, dropout_rng: Optional[prng.Key] = None):
         return self.forward_nchw(image.permute(0, 3, 1, 2), dropout_rng).permute(0, 2, 3, 1)
 
 

@@ -28,8 +28,9 @@ The train step runs the module in training mode, as the JAX step applies
 the flax module with ``train=True`` and ``mutable=["batch_stats"]``:
 BatchNorm normalizes with the batch's statistics and the step collects the
 running statistics each BatchNorm computed (``models/layers.py``), and
-``dropout_rng`` (a ``torch.Generator``) drives the dropout of the models
-that have it.  The eval step runs in eval mode on the running statistics.
+``dropout_rng`` (an ``ops/prng.py`` key, the JAX step's ``dropout_rng``)
+drives the dropout of the models that have it, drawing JAX's masks.  None
+draws no dropout.  The eval step runs in eval mode on the running statistics.
 Parameters that the loss does not reach (EfficientNet's dead tail) get zero
 gradients, as ``jax.grad`` gives them.
 
@@ -41,7 +42,9 @@ copy of the parameters (``torch.func.functional_call`` over per-device
 dicts: the step already threads the parameters as a dict), and the shards
 reduce as the JAX ``shard_map`` step does: each shard's loss is scaled by
 its share of the global weight mass, so the summed gradient is the
-single-device one and pure-padding shards add nothing; BatchNorm statistics
+single-device one and pure-padding shards add nothing; each shard draws its
+dropout under ``fold_in(dropout_rng, shard)``, the global shard index, as
+the JAX step folds in ``axis_index``; BatchNorm statistics
 are averaged over the shards; the metrics are pixel-weighted (``loss``,
 ``accuracy``) or per-valid-page means (the others); ``loss`` is the reduced
 monitored loss.  The sums run in two ``parallel/mesh.py`` ``psum`` calls a
@@ -55,12 +58,12 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
-import numpy as np
 import torch
 import torch.utils.checkpoint
 from torch.func import functional_call
 
 from ..models.layers import BatchNorm
+from ..ops.prng import fold_in
 from . import metrics as M
 from .optim import map_tree
 
@@ -141,9 +144,8 @@ def make_step_fns(
 
     batch_norms = [(name, m) for name, m in module.named_modules() if isinstance(m, BatchNorm)]
 
-    def forward(params, model_state, image, dropout_rng, rng_state):
-        if dropout_rng is not None:  # a recomputation (remat) draws the same mask
-            dropout_rng.set_state(rng_state)
+    def forward(params, model_state, image, dropout_rng):
+        # the mask is a function of the key: a recomputation (remat) draws it again
         return functional_call(module, {**params, **model_state}, (image,),
                                {"dropout_rng": dropout_rng})
 
@@ -157,8 +159,7 @@ def make_step_fns(
 
     def grads_of(params, model_state, batch, dropout_rng, scale=None):
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        args = (leaves, model_state, batch["image"], dropout_rng,
-                dropout_rng.get_state() if dropout_rng is not None else None)
+        args = (leaves, model_state, batch["image"], dropout_rng)
         module.train()
         try:
             if remat:
@@ -220,7 +221,6 @@ def make_step_fns(
     n_shards = mesh.shape[data_axis]  # the axis across every process
     shard_offset = mesh.process_index * len(mesh.axis_devices(data_axis))
     pixel_weighted = ("loss", "accuracy")
-    steps_taken = [0]
 
     def shards_of(batch):
         """One unpacked batch dict per local shard."""
@@ -241,15 +241,10 @@ def make_step_fns(
         total = psum(mesh, [[t] for t in sums])[0].clamp_min(1.0)
         return [t / total.to(t.device) for t in sums]
 
-    def shard_rng(dropout_rng, index, device):
-        """A dropout stream of its own for each shard and step."""
-        if dropout_rng is None:
-            return None
-        seed = np.random.SeedSequence([dropout_rng.initial_seed(), steps_taken[0],
-                                       shard_offset + index]).generate_state(1)[0]
-        generator = torch.Generator(device=device)
-        generator.manual_seed(int(seed))
-        return generator
+    def shard_rng(dropout_rng, index):
+        """The shard's dropout key: the JAX step's ``fold_in(dropout_rng,
+        axis_index)``."""
+        return None if dropout_rng is None else fold_in(dropout_rng, shard_offset + index)
 
     def reduce(shards, metrics, tensors=()):
         """The reduced metrics and the shard-summed ``tensors`` (one list
@@ -287,12 +282,11 @@ def make_step_fns(
             device = b["image"].device
             loss_i, logits, grads, stats = grads_of(
                 on(params, device), on(model_state, device), b,
-                shard_rng(dropout_rng, i, device), scale=shares[i])
+                shard_rng(dropout_rng, i), scale=shares[i])
             with torch.no_grad():
                 metrics.append(compute_metrics(b, logits))
             losses.append(loss_i)
             tensors.append([loss_i.reshape(1)] + list(grads.values()) + list(stats.values()))
-        steps_taken[0] += 1
         reduced, summed = reduce(shards, metrics, tensors)
         home = next(iter(params.values())).device
         grad_names = list(grads)

@@ -15,14 +15,17 @@ a side stream (``inference/pipeline.py`` ``DeviceTransfers``); the step
 waits for that copy's event before it reads the batch.  Each epoch draws
 its shuffle and host augmentation from ``np.random.default_rng([seed,
 epoch])``, as the JAX trainer does, so both packages see the same batches
-in the same order; device augmentation draws from a ``torch.Generator``
-seeded from (seed, epoch).
+in the same order.  The device draws follow the JAX trainer's key chain
+(``ops/prng.py``): each epoch starts from ``fold_in(PRNGKey(seed),
+epoch)``, each step splits it into the next key and the step's dropout key,
+and with device augmentation splits once more for the augmentation's key,
+for every model, so both packages draw the same dropout masks and the same
+affines.
 
 The live weights are the module's parameters and, for the BatchNorm
 families, its buffers; ``Trainer.params`` and ``Trainer.model_state`` read
 and write them as the JAX param tree and ``{"batch_stats": ...}`` of numpy
-arrays, and checkpoints hold both in flax's layout.  Each epoch's dropout
-masks (UNet) come from a ``torch.Generator`` seeded from (seed, epoch).  A
+arrays, and checkpoints hold both in flax's layout.  A
 fresh run starts from ``PixelClassifier``'s weights (``init_variables``:
 flax's own, so a fresh run of any model starts where the JAX trainer's
 does).  ``pretrained_encoder``
@@ -62,6 +65,7 @@ from ..device import resolve_device
 from ..models.bridge import params_from_jax, params_to_jax
 from ..models.registry import Architecture, Optimizers
 from ..ops.pad import bucket_shape, pad_to
+from ..ops.prng import fold_in, prng_key, split
 from .callbacks import ModelDiagnoser, ScalarLogger, TrainProgressCallback
 from .checkpoint import save_checkpoint
 from .metrics import Loss, Monitor
@@ -635,15 +639,10 @@ class Trainer:
             shuffle_rng.shuffle(order)
         return order
 
-    def _augment_on_device(self, batch, generator):
-        """The affine on the device; a mesh batch per shard, each with its
-        own generator (``generator`` is then a list, one per shard)."""
+    def _augment_on_device(self, batch, key):
+        """The affine on the device, drawn from ``key``; a mesh batch per
+        shard, each shard its rows of the draw for the global batch."""
         from ..data.augment_device import DeviceAugmentConfig, augment_batch_on_device
-
-        if self.mesh is not None:
-            pieces = [self._augment_on_device({k: v[i] for k, v in batch.items()}, g)
-                      for i, g in enumerate(generator)]
-            return {k: [p[k] for p in pieces] for k in batch}
 
         aug = self.settings.data_augmentation_settings
         cfg = DeviceAugmentConfig(
@@ -656,9 +655,20 @@ class Trainer:
             horizontal_flip=aug.horizontal_flip,
             vertical_flip=aug.vertical_flip,
         )
-        image, binary, mask = augment_batch_on_device(
-            generator, batch["image"], batch["binary"], batch["mask"], cfg)
-        return {**batch, "image": image, "binary": binary, "mask": mask}
+
+        def rows(piece, offset=0, total=None):
+            image, binary, mask = augment_batch_on_device(
+                key, piece["image"], piece["binary"], piece["mask"], cfg, offset, total)
+            return {**piece, "image": image, "binary": binary, "mask": mask}
+
+        if self.mesh is None:
+            return rows(batch)
+        shards = batch["image"]
+        n_each = len(shards[0])  # the mesh pads every shard to one size
+        first = self.mesh.process_index * len(shards)
+        pieces = [rows({k: v[i] for k, v in batch.items()}, (first + i) * n_each,
+                       n_each * self.mesh.shape["data"]) for i in range(len(shards))]
+        return {k: [p[k] for p in pieces] for k in batch}
 
     # ----------------------------------------------------------------- train
     def train(self, callback: Optional[TrainProgressCallback] = None) -> dict:
@@ -717,19 +727,7 @@ class Trainer:
             # per-epoch streams: a run resumed at epoch k draws what the
             # uninterrupted run draws there
             rng = np.random.default_rng([s.seed, epoch])
-            generator = None
-            if device_augment:
-                seed = int(np.random.SeedSequence([s.seed, epoch]).generate_state(1)[0])
-                if self.mesh is None:
-                    generator = torch.Generator(device=self.device)
-                    generator.manual_seed(seed)
-                else:
-                    generator = []
-                    for i, device in enumerate(self.mesh.axis_devices("data")):
-                        generator.append(torch.Generator(device=device))
-                        generator[-1].manual_seed(seed + i)
-            dropout_rng = torch.Generator(device=self.device)
-            dropout_rng.manual_seed(int(np.random.SeedSequence([s.seed, epoch, 1]).generate_state(1)[0]))
+            dropout_key = fold_in(prng_key(s.seed), epoch)
             epoch_metrics = []
             batches = self._bucketed_batches(s.train_data, s.batch_size, shuffle_rng=rng)
             with ThreadPoolExecutor(max_workers=1) as prefetch:
@@ -738,10 +736,12 @@ class Trainer:
                     batch = self._take_batch(next_batch.result())
                     if index + 1 < len(batches):
                         next_batch = prefetch.submit(build_batch, batches[index + 1])
+                    dropout_key, step_key = split(dropout_key)
                     if device_augment:
-                        batch = self._augment_on_device(batch, generator)
+                        dropout_key, aug_key = split(dropout_key)
+                        batch = self._augment_on_device(batch, aug_key)
                     new_params, new_state, self.opt_state, step_metrics = self._train_step(
-                        self._live(), self._live_state(), self.opt_state, batch, dropout_rng
+                        self._live(), self._live_state(), self.opt_state, batch, step_key
                     )
                     self._assign(new_params, new_state)
                     skipped_step = False

@@ -1,5 +1,5 @@
-"""The CUDA kernels (csrc/cc_label.cu, csrc/add_one.cu) against their plain
-PyTorch versions, and the per-page classifier with its device vote, on the
+"""The CUDA kernels (csrc/cc_label.cu, csrc/add_one.cu, csrc/jax_random.cu)
+against their plain PyTorch versions, and the per-page classifier with its device vote, on the
 card.  Needs a CUDA card: every test here skips without one
 (the kernel has no CPU mode).  The file imports nothing of JAX, so it runs
 on a machine with a card and no JAX:
@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
+from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc, prng
 
 
 @pytest.fixture
@@ -132,6 +132,39 @@ def test_add_one_matches_plain_version(shape, cuda_device):
     assert cuda_add_one.launches == before + 1
     assert got.dtype == torch.int32
     assert torch.equal(got, cuda_add_one.add_one_reference(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64], ids=str)
+@pytest.mark.parametrize("shape", [(8, 512, 54, 38), (3, 5, 7, 11), (1, 1, 1, 1)])
+@pytest.mark.parametrize("rate", [0.5, 0.1])
+def test_jax_dropout_matches_plain_version(shape, dtype, rate, cuda_device):
+    """Forward and backward through the kernel, bit for bit with the plain
+    version on the card; one launch each."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(shape, generator=gen, device=cuda_device, dtype=torch.float64).to(dtype)
+    dy = torch.randn(shape, generator=gen, device=cuda_device, dtype=torch.float64).to(dtype)
+    key = prng.fold_in_static(prng.prng_key(7), ("Dropout_1", 1))
+    before = prng.launches
+    x.requires_grad_(True)
+    y = prng.dropout(x, rate, key)
+    (dx,) = torch.autograd.grad(y, x, dy)
+    torch.cuda.synchronize()
+    assert prng.launches == before + 2
+    assert torch.equal(y.detach(), prng.dropout_plain(x.detach(), key, rate))
+    assert torch.equal(dx, prng.dropout_plain(dy, key, rate))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 8, 1_000_003])
+@pytest.mark.parametrize("minval, maxval", [(-2.5, 2.5), (0.95, 1.05), (0.0, 0.0)])
+def test_jax_uniform_matches_plain_version(n, minval, maxval, cuda_device):
+    key = prng.split(prng.prng_key(2), 3)[1]
+    before = prng.uniform_launches
+    got = prng.uniform(key, (n,), minval, maxval, cuda_device)
+    torch.cuda.synchronize()
+    assert prng.uniform_launches == before + 1
+    assert torch.equal(got, prng.uniform_plain(key, (n,), minval, maxval, cuda_device))
 
 
 @pytest.mark.cuda

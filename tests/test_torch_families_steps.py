@@ -22,6 +22,7 @@ from page_segmentation_tpu.models.registry import Architecture as JaxArchitectur
 from page_segmentation_tpu.train import metrics as jax_metrics
 from page_segmentation_tpu_torch.models.bridge import params_to_jax
 from page_segmentation_tpu_torch.models.registry import Architecture, Optimizers
+from page_segmentation_tpu_torch.ops.prng import prng_key
 from page_segmentation_tpu_torch.train import metrics
 from page_segmentation_tpu_torch.train.steps import make_step_fns
 from tests.torch_families import calibrated, page_input
@@ -53,9 +54,13 @@ def _rel(a, b):
     return np.linalg.norm(a - b) / np.linalg.norm(b)
 
 
-def step_both(name, dtype="float64"):
-    """(port, JAX) of one step: (loss, gradient tree, new statistics)."""
+def step_both(name, dtype="float64", dropout_seed=None, jax_train=True):
+    """(port, JAX) of one step: (loss, gradient tree, new statistics); with
+    ``dropout_seed`` both draw their dropout under ``PRNGKey(dropout_seed)``.
+    ``jax_train=False`` applies the JAX module in eval mode (for UNet, whose
+    flag only switches its dropouts, the step without dropout)."""
     arch = Architecture(name)
+    rngs = {} if dropout_seed is None else {"rngs": {"dropout": jax.random.PRNGKey(dropout_seed)}}
     x, mask, weights = _batch(arch)
     module, variables = calibrated(arch, x, dtype=getattr(torch, dtype))
     stats = variables.get("batch_stats")
@@ -64,10 +69,10 @@ def step_both(name, dtype="float64"):
 
         def loss_of(params):
             if stats is None:
-                return jax_metrics.loss(mask, jax_module.apply({"params": params}, x, train=True),
+                return jax_metrics.loss(mask, jax_module.apply({"params": params}, x, train=jax_train, **rngs),
                                         weights=weights), {}
             logits, new_state = jax_module.apply({"params": params, "batch_stats": stats}, x,
-                                                 train=True, mutable=["batch_stats"])
+                                                 train=True, mutable=["batch_stats"], **rngs)
             return jax_metrics.loss(mask, logits, weights=weights), new_state
 
         (want_loss, want_state), want_grads = jax.jit(
@@ -75,8 +80,9 @@ def step_both(name, dtype="float64"):
     step, _ = make_step_fns(module, Optimizers.ADAM.make(1e-3), metrics.loss)
     batch = {"image": torch.from_numpy(x), "mask": torch.from_numpy(mask),
              "weights": torch.from_numpy(weights), "binary": torch.ones(mask.shape, dtype=torch.uint8)}
+    key = None if dropout_seed is None else prng_key(dropout_seed)
     loss, grads, state = step.value_and_grad(dict(module.named_parameters()),
-                                             dict(module.named_buffers()), batch, with_state=True)
+                                             dict(module.named_buffers()), batch, key, with_state=True)
     assert not module.training  # the step hands the module back in eval mode
     return (float(loss), params_to_jax(grads), state), (float(want_loss), want_grads, want_state)
 

@@ -48,19 +48,21 @@ def test_export_h5_and_pretrained_encoder(tmp_path):
 
 def test_unet_dropout_is_drawn_per_epoch_from_the_seed(tmp_path, monkeypatch):
     """The same seed draws the same masks; another seed other masks (the
-    weights come from the checkpoint, so only the dropout differs)."""
+    weights come from the checkpoint, so only the dropout differs): each
+    dropout layer draws under its own key of the seed's chain."""
     from page_segmentation_tpu_torch.models import unet
 
     start = _start(Architecture.UNET, tmp_path)
-    seeds = []
+    keys = []
     dropout = unet.dropout
-    monkeypatch.setattr(unet, "dropout", lambda x, rate, generator=None: (
-        seeds.append(generator.initial_seed()), dropout(x, rate, generator))[1])
+    monkeypatch.setattr(unet, "dropout", lambda x, rate, key: (
+        keys.append((int(key[0]), int(key[1]))), dropout(x, rate, key))[1])
     runs = [_port(tmp_path / str(seed), Architecture.UNET, n_pages=1, n_epoch=1, load=start, seed=seed)
             for seed in (0, 0, 1)]
     a, b, c = (run.train()["loss"] for run in runs)
     assert a == b and a != c and np.isfinite(a).all()
-    assert len(set(seeds)) == 2 and len(seeds) == 3 * 2  # runs x dropout layers
+    assert len(keys) == 3 * 2  # runs x dropout layers
+    assert keys[:2] == keys[2:4] and len(set(keys)) == 4  # two layers' keys for each seed
 
 
 def test_train_cli_exports_h5(tmp_path, capsys):

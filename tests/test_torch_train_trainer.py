@@ -26,6 +26,7 @@ from page_segmentation_tpu_torch.data import augment_device
 from page_segmentation_tpu_torch.data.dataset import Dataset, SingleData
 from page_segmentation_tpu_torch.inference.classifier import PixelClassifier
 from page_segmentation_tpu_torch.models.registry import Optimizers
+from page_segmentation_tpu_torch.ops.prng import prng_key
 from page_segmentation_tpu_torch.train.callbacks import TrainProgressCallback
 from page_segmentation_tpu_torch.train.metrics import Monitor
 from page_segmentation_tpu_torch.train.trainer import (
@@ -378,7 +379,8 @@ def test_device_augmentation_keeps_classes_and_identity():
     images = torch.rand((n, h, w, 1), generator=g)
     binaries = (masks > 0).to(torch.uint8)
     cfg = augment_device.DeviceAugmentConfig(horizontal_flip=True, vertical_flip=True)
-    image_a, binary_a, mask_a = augment_device.augment_batch_on_device(g, images, binaries, masks, cfg)
+    image_a, binary_a, mask_a = augment_device.augment_batch_on_device(prng_key(0), images, binaries,
+                                                                       masks, cfg)
     assert image_a.shape == images.shape and mask_a.dtype == masks.dtype
     assert set(mask_a.unique().tolist()) <= set(masks.unique().tolist())
     identity = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]).expand(n, 2, 3)
