@@ -45,6 +45,14 @@ to 0 just before it and read just after:
   steps timed on the card, one float32 step held against the CPU, and an
   epoch with device augmentation (its parameters drawn on the card by the
   uniform kernel, 6 launches a step);
+* training checkpoints in orbax's layout (``phase_checkpoint``): FCNSkip
+  trained 2 epochs with ``checkpoint_backend="orbax"`` and auto-resumed to
+  3 against the uninterrupted run (within RESUME_LOSS_RTOL and
+  RESUME_WEIGHTS_RTOL under the train cell's flags, beside two
+  uninterrupted runs' own distance; bit-equal under deterministic cuDNN), the JAX-written step
+  ``tests/orbax_fixture/`` read bit-equal to its digests and saved again by
+  the port, the zstd decoder's MB/s, and UNet's training state saved and
+  restored with its seconds and MB/s;
 * the other model families (UNet, ResUNet, ResNet50, MobileNetV2,
   EfficientNet-B0 and -B7 U-Nets) at their published widths on the
   throughput path with the device vote, each held against the CPU and
@@ -140,6 +148,14 @@ MESH_STEP_PAGES = 7        # FCNSkip data-parallel step: odd, one shard padded
 MESH_BN_PAGES = 3          # mobile_net data-parallel step, card vs CPU
 INIT_THROUGHPUT = ("mobile_net", "effb0")  # phase_init: one throughput batch each
 INIT_DRAW_LIMIT_S = 5.0    # effb7's fresh draw on the host
+CHECKPOINT_ARCH = "unet"   # phase_checkpoint: the training state saved and restored
+CHECKPOINT_REPS = 3
+# resumed vs uninterrupted run under the train cell's non-deterministic cuDNN:
+# two uninterrupted runs of 12 steps from a random start differ by up to
+# ~1e-3 in the loss and ~1e-2 in the weights; deterministic cuDNN: bit-equal
+RESUME_LOSS_RTOL = 1e-2
+RESUME_WEIGHTS_RTOL = 5e-2
+ZSTD_REPS = 20             # the decoder over the orbax fixture's frames
 QUALITY_EPOCHS = 300       # the recipe's cap; the trainer's early stopping ends the run
 QUALITY_SPLIT = (10, ["page10", "page4"])  # the JAX tool's seed and eval pages
 QUALITY_LOSS_DROP = 5
@@ -147,6 +163,7 @@ QUALITY_FGPA = 0.85
 QUALITY_F1 = 0.5
 QUALITY_BF16_AGREEMENT = 0.999
 DEVICE = "cuda"
+CARD = "not read"          # nvidia-smi's name and power limit, set by phase_card
 
 # the cuDNN and TF32 flags, at PyTorch's defaults: the port's CLI sets none
 DEFAULT_FLAGS = {"cudnn.deterministic": False, "cudnn.benchmark": False,
@@ -403,6 +420,8 @@ def phase_card():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    global CARD
+    CARD = smi
     log(smi)
     log(f"phase card: torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -2166,6 +2185,198 @@ def phase_train(pages, binaries, work: str):
             "trainer": trainer}
 
 
+@backend_flags("checkpoint")
+def phase_checkpoint(trainer, work: str):
+    """orbax's step directories on the card (``train/orbax_format.py``):
+    (a) FCNSkip at full width on the train cell's pages with
+    ``checkpoint_backend="orbax"``, 2 epochs then ``auto_resume`` to 3,
+    against an uninterrupted 3-epoch run: under the train cell's flags
+    (non-deterministic cuDNN) the epoch-3 loss and the final weights (all
+    leaves as one vector) within RESUME_LOSS_RTOL and RESUME_WEIGHTS_RTOL,
+    beside a second uninterrupted run that shows the cuDNN noise, under
+    deterministic cuDNN bit-equal; (b) the JAX-written
+    step ``tests/orbax_fixture/`` read bit-equal to its digests, its leaves
+    through the card and back, saved again by the port and read back
+    bit-equal; the zstd decoder's MB/s over its compressed frames; (c) the
+    save, wait and restore seconds and MB/s of CHECKPOINT_ARCH's training
+    state (parameters and Adam state)."""
+    import os
+
+    from page_segmentation_tpu_torch import native
+    from page_segmentation_tpu_torch.models.registry import Architecture
+    from page_segmentation_tpu_torch.ops import cuda_add_one, cuda_cc
+    from page_segmentation_tpu_torch.train import orbax_format
+    from page_segmentation_tpu_torch.train.checkpoint import OrbaxCheckpointer
+    from page_segmentation_tpu_torch.train.trainer import Trainer
+
+    fixture = tests_module("make_orbax_fixture")
+    t_phase = time.perf_counter()
+    cuda_cc.launches = cuda_add_one.launches = 0
+    base = trainer.settings._replace(validation_data=None, evaluation_data=None, load=None,
+                                     save_best_model_only=False,
+                                     early_stopping_restore_best_weights=False)
+    report = {"card": CARD, "pages": len(base.train_data), "batch": base.batch_size}
+
+    # (a) a run resumed on the card against the uninterrupted run
+    def distance(a, a_loss, b, b_loss):
+        """How far run b's epoch-3 loss and final weights lie from run a's."""
+        ref = {k: v.detach().double() for k, v in a._live().items()}
+        got = {k: v.detach().double() for k, v in b._live().items()}
+        rel = {k: float((got[k] - ref[k]).norm() / ref[k].norm().clamp_min(1e-30)) for k in ref}
+        worst = max(rel, key=rel.get)
+        flat_ref, flat_got = (torch.cat([t[k].flatten() for k in sorted(ref)]) for t in (ref, got))
+        return {"loss_rel": abs(b_loss - a_loss) / abs(a_loss),
+                "weights_rel": float((flat_got - flat_ref).norm() / flat_ref.norm()),
+                "leaf_rel_max": rel[worst], "leaf_rel_max_leaf": worst,
+                "bit_equal": b_loss == a_loss and all(torch.equal(got[k], ref[k]) for k in ref)}
+
+    def resumed_run(tag, overrides):
+        with backend_flags(f"checkpoint resume ({tag})", overrides):
+            flags = current_flags()
+            full = Trainer(base._replace(n_epoch=3, output_dir=os.path.join(work, f"ckpt_full_{tag}")))
+            want = full.train()
+            out = os.path.join(work, f"ckpt_part_{tag}")
+            t0 = time.perf_counter()
+            Trainer(base._replace(n_epoch=2, output_dir=out, checkpoint_backend="orbax")).train()
+            two_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            resumed = Trainer(base._replace(n_epoch=3, output_dir=out, checkpoint_backend="orbax",
+                                            auto_resume=True))
+            resume_s = time.perf_counter() - t0
+            tail = resumed.train()
+            # a second uninterrupted run: how far the card's own noise moves a run
+            again = Trainer(base._replace(n_epoch=3, output_dir=os.path.join(work, f"ckpt_again_{tag}")))
+            again_loss = again.train()["loss"][2]
+            torch.cuda.synchronize()
+        result = {"flags": flags, "resumed_from_epoch": resumed._resume_meta["epoch"],
+                  "steps": OrbaxCheckpointer(os.path.join(out, "model_orbax")).all_steps(),
+                  "full_losses": want["loss"], "resumed_loss": tail["loss"],
+                  **distance(full, want["loss"][2], resumed, tail["loss"][0]),
+                  "uninterrupted_twice": distance(full, want["loss"][2], again, again_loss),
+                  "two_epochs_s": two_s, "restore_s": resume_s}
+        noise = result["uninterrupted_twice"]
+        log(f"phase checkpoint, resume ({tag}): 2 epochs of {len(base.train_data)} A4 pages with "
+            f"orbax steps {result['steps'][:2]} in {two_s:.2f} s, auto_resume from epoch "
+            f"{result['resumed_from_epoch']} (Trainer built with the step restored in "
+            f"{resume_s:.3f} s); epoch-3 loss {tail['loss'][0]:.8f} vs uninterrupted "
+            f"{want['loss'][2]:.8f} (rel {result['loss_rel']:.3e}); all weights rel "
+            f"{result['weights_rel']:.3e} in norm (the farthest leaf {result['leaf_rel_max_leaf']}: "
+            f"{result['leaf_rel_max']:.3e}); bit-equal {result['bit_equal']}; two uninterrupted runs: "
+            f"loss rel {noise['loss_rel']:.3e}, weights rel {noise['weights_rel']:.3e}, bit-equal "
+            f"{noise['bit_equal']}; {CARD}")
+        if result["resumed_from_epoch"] != 1 or result["steps"] != [0, 1, 2] or len(tail["loss"]) != 1:
+            raise AssertionError(f"orbax resume ({tag}): {result}")
+        return result
+
+    report["resume_train_flags"] = resumed_run("train cell's flags", None)
+    report["resume_deterministic"] = resumed_run("deterministic", {"cudnn.deterministic": True})
+    r = report["resume_train_flags"]
+    log(f"  tolerance under the train cell's flags (non-deterministic cuDNN, whose noise two "
+        f"uninterrupted runs show): the epoch-3 loss within rel {RESUME_LOSS_RTOL}, all weights (one "
+        f"vector) within rel {RESUME_WEIGHTS_RTOL}; under deterministic cuDNN: bit-equal")
+    if r["loss_rel"] > RESUME_LOSS_RTOL or r["weights_rel"] > RESUME_WEIGHTS_RTOL:
+        raise AssertionError(f"resumed run off the uninterrupted one: {r}")
+    if not report["resume_deterministic"]["bit_equal"]:
+        raise AssertionError(f"deterministic resumed run not bit-equal: {report['resume_deterministic']}")
+
+    # (b) the JAX-written step: digests, through the card, saved again by the port
+    with open(fixture.DIGESTS) as f:
+        frozen = json.load(f)
+    t0 = time.perf_counter()
+    step, state, meta = OrbaxCheckpointer(fixture.DIRECTORY).restore()
+    read_s = time.perf_counter() - t0
+    if step != fixture.STEP or fixture.digests(state, meta) != frozen:
+        raise AssertionError(f"the JAX-written step {step} does not read to its digests")
+
+    def to_device(tree, device):
+        if isinstance(tree, dict):
+            return {k: to_device(v, device) for k, v in tree.items()}
+        return torch.as_tensor(tree).to(device)
+
+    on_card = to_device(state, DEVICE)
+    if fixture.digests(to_device(on_card, "cpu"), meta) != frozen:
+        raise AssertionError("the JAX-written step changed on its way through the card")
+    again = OrbaxCheckpointer(os.path.join(work, "ckpt_fixture"))
+    again.save(step, on_card["variables"], opt_state=on_card["opt_state"], meta=meta)
+    again_step, again_state, again_meta = again.restore()
+    if again_step != step or fixture.digests(again_state, again_meta) != frozen:
+        raise AssertionError("the JAX-written step did not survive the port's save and restore")
+    store = orbax_format.read_ocdbt(os.path.join(fixture.DIRECTORY, str(step), "state"))
+    frames = [bytes(v) for k, v in store.items() if not k.endswith(b"/.zarray")]
+    big = bytes(store[b"variables.batch_stats.bn_big.mean/0"])  # Huffman literals, FSE sequences
+
+    def decode_ms(batch):
+        t0 = time.perf_counter()
+        for _ in range(ZSTD_REPS):
+            for frame in batch:
+                native.zstd_decompress(frame)
+        return (time.perf_counter() - t0) / ZSTD_REPS * 1e3
+
+    plain_bytes = sum(len(native.zstd_decompress(f)) for f in frames)
+    big_bytes = len(native.zstd_decompress(big))
+    zstd_ms, big_ms = decode_ms(frames), decode_ms([big])
+    report["fixture"] = {"leaves": sum("sha256" in v for v in frozen["leaves"].values()),
+                         "read_s": read_s, "frames": len(frames),
+                         "compressed_bytes": sum(map(len, frames)), "plain_bytes": plain_bytes,
+                         "zstd_ms": zstd_ms, "zstd_mb_per_s": plain_bytes / zstd_ms / 1e3,
+                         "big_frame_bytes": [len(big), big_bytes], "big_frame_ms": big_ms,
+                         "big_frame_mb_per_s": big_bytes / big_ms / 1e3}
+    fx = report["fixture"]
+    log(f"phase checkpoint, JAX-written step {step}: {fx['leaves']} leaves and the meta bit-equal to "
+        f"digests.json (read in {read_s * 1e3:.1f} ms), through the card and back, and after the "
+        f"port's save and restore; zstd decoder (host, one thread) over its {fx['frames']} frames "
+        f"({fx['compressed_bytes']} bytes -> {plain_bytes}): {zstd_ms:.3f} ms = "
+        f"{fx['zstd_mb_per_s']:.1f} MB/s out; the 160 KiB leaf's frame ({len(big)} -> {big_bytes}) "
+        f"{big_ms:.3f} ms = {fx['big_frame_mb_per_s']:.1f} MB/s; {CARD}")
+
+    # (c) a family's training state: sizes and seconds
+    arch = Architecture(CHECKPOINT_ARCH)
+    run = Trainer(base._replace(architecture=arch, n_epoch=0,
+                                output_dir=os.path.join(work, f"ckpt_{arch.value}")))
+    variables = {"params": run.params, **run.model_state}
+    opt_state = run.optimizer.state_dict(run.opt_state)
+    directory = os.path.join(work, f"ckpt_{arch.value}", "model_orbax")
+    ckpt = OrbaxCheckpointer(directory, max_to_keep=1)
+    times = []
+    for rep in range(CHECKPOINT_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(rep, variables, opt_state=opt_state, meta={"epoch": rep})
+        t1 = time.perf_counter()
+        ckpt.wait()
+        t2 = time.perf_counter()
+        _, restored, _ = ckpt.restore()
+        t3 = time.perf_counter()
+        times.append((t1 - t0, t2 - t1, t3 - t2))
+    size = fixture.tree_size(os.path.join(directory, str(CHECKPOINT_REPS - 1)))
+    params_bytes = sum(len(fixture.leaf_bytes(v)[2]) for _, v in fixture._flat(restored["variables"]))
+    want_digest = fixture.digests({"variables": variables, "opt_state": opt_state}, {})
+    if fixture.digests(restored, {}) != want_digest:
+        raise AssertionError(f"{arch.value}'s training state did not read back bit-equal")
+    save_s = [a + b for a, b, _ in times]
+    report["state"] = {
+        "architecture": arch.value, "bytes_on_disk": size, "variables_bytes": params_bytes,
+        "save_call_s": [t[0] for t in times], "wait_s": [t[1] for t in times],
+        "restore_s": [t[2] for t in times],
+        "save_mb_per_s": [size / t / 1e6 for t in save_s],
+        "restore_mb_per_s": [size / t[2] / 1e6 for t in times]}
+    st = report["state"]
+    log(f"phase checkpoint, {arch.value} training state: {size / 1e6:.1f} MB on disk (variables "
+        f"{params_bytes / 1e6:.1f} MB, the rest Adam's mu and nu); save call (copy to the host) "
+        + ", ".join(f"{t:.3f}" for t in st["save_call_s"]) + " s, wait (the write) "
+        + ", ".join(f"{t:.3f}" for t in st["wait_s"]) + " s = "
+        + ", ".join(f"{v:.1f}" for v in st["save_mb_per_s"]) + " MB/s; restore "
+        + ", ".join(f"{t:.3f}" for t in st["restore_s"]) + " s = "
+        + ", ".join(f"{v:.1f}" for v in st["restore_mb_per_s"]) + f" MB/s; bit-equal; {CARD}")
+
+    launches = {"cc_label": cuda_cc.launches, "add_one": cuda_add_one.launches}
+    if any(launches.values()):
+        raise AssertionError(f"kernels launched on the checkpoint path: {launches}")
+    report["phase_s"] = time.perf_counter() - t_phase
+    log("checkpoint: " + json.dumps(report))
+    return {"report": report, "launches": launches}
+
+
 def family_gflop_per_page(arch, channels: int, shape) -> float:
     """GFLOP of one page's forward (2 per multiply-add), counted by
     torch.utils.flop_counter on the meta device: shapes only, no compute."""
@@ -2972,18 +3183,21 @@ def phase_mesh(pages, binaries, model: str, train_settings, work: str):
         resume_epoch = resumed._resume_meta and resumed._resume_meta.get("epoch")
         second_s, second = counted("mesh_train_resumed", resumed.train)
         steps = OrbaxCheckpointer(os.path.join(out, "model_orbax")).all_steps()
+        orbax_layout = all(os.path.exists(os.path.join(out, "model_orbax", str(k), "state",
+                                                       "manifest.ocdbt")) for k in steps)
     finally:
         distributed.shutdown()
     report["trainer"] = {"backend": backend, "pages": len(settings.train_data), "first_s": first_s,
                          "resumed_s": second_s, "losses": first["loss"] + second["loss"],
                          "steps_after_first": steps_after_first, "steps": steps,
-                         "resumed_from_epoch": resume_epoch}
+                         "resumed_from_epoch": resume_epoch, "orbax_layout": orbax_layout}
     log(f"phase mesh, trainer: distributed.initialize() at world size 1 over {backend}, all_reduce "
         f"on the card; Trainer(distributed=True) 1 epoch of {len(settings.train_data)} pages in "
         f"{first_s:.2f} s, versioned steps {steps_after_first}; auto_resume from epoch "
         f"{resume_epoch} ran epoch 1 in {second_s:.2f} s, steps {steps}; losses "
         f"{[round(v, 5) for v in first['loss'] + second['loss']]}")
-    if steps_after_first != [0] or resume_epoch != 0 or steps != [0, 1] or len(second["loss"]) != 1:
+    if steps_after_first != [0] or resume_epoch != 0 or steps != [0, 1] or len(second["loss"]) != 1 \
+            or not orbax_layout:
         raise AssertionError(f"versioned checkpoints / auto_resume: {report['trainer']}")
     if not np.isfinite(first["loss"] + second["loss"]).all():
         raise AssertionError("non-finite training loss on the mesh")
@@ -3167,6 +3381,7 @@ def main(argv=None) -> int:
         options = counted("options", phase_options, pages, binaries, corpus["model"], work)
         serve = counted("serve", phase_serve, pages, corpus["model"])
         train = phase_train(pages, binaries, work)
+        checkpoint = counted("checkpoint", phase_checkpoint, train["trainer"], work)
         families = counted("families", phase_families, pages, binaries, work)
         init = counted("init", phase_init, pages, binaries)
         trainer = train.pop("trainer")
@@ -3231,6 +3446,7 @@ def main(argv=None) -> int:
                              "serve_fused": serve["fused_launches"],
                              "serve_spline": serve["spline_launches"],
                              "train": train["launches"]["cc_label"],
+                             "checkpoint": checkpoint["launches"]["cc_label"],
                              "families_throughput": family_launches,
                              "families_library": families["library_launches"],
                              "init": init["launches"]["cc_label"],
@@ -3250,7 +3466,8 @@ def main(argv=None) -> int:
         "launches_by_path": {"throughput": 0, "library": 0, "repro_download": add_one["launches"],
                              "predict_pipeline_cli": 0, "corpus_pallas": 0, "predict_fast_cli": 0,
                              "serve_fused": 0, "serve_spline": 0,
-                             "train": train["launches"]["add_one"], "families_throughput": 0,
+                             "train": train["launches"]["add_one"],
+                             "checkpoint": checkpoint["launches"]["add_one"], "families_throughput": 0,
                              "families_library": 0, "init": init["launches"]["add_one"],
                              "families_train": train_families["launches"]["add_one"],
                              "segment": segment["launches"]["add_one"],

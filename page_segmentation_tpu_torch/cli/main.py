@@ -611,7 +611,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--class_weighting", type=float, default=0.0)
     t.add_argument("--checkpoint_backend", default="msgpack", choices=["msgpack", "orbax"],
                    help="orbax: also keep step-versioned asynchronous checkpoints under "
-                        "<output>/<model_name>_orbax (the port's own layout)")
+                        "<output>/<model_name>_orbax, in orbax's layout (the JAX package reads them)")
     t.add_argument("--load", default=None)
     t.add_argument("--pretrained_encoder", default=None)
     t.add_argument("--batch_size", type=int, default=1)

@@ -1,5 +1,6 @@
 """ctypes bindings for the host C functions of the predict, segmentation
-and PageXML paths and of flax's fresh weights (``ps_native.cpp``).
+and PageXML paths, of flax's fresh weights, and of the zstd decoder and
+CRC-32C that orbax's checkpoint layout needs (``ps_native.cpp``).
 
 The library is built with g++ at first use into the package's ``_build/``
 directory (see ``_kernels.py``); a failed build raises.  Every wrapper
@@ -28,6 +29,7 @@ _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _int = ctypes.c_int
+_size = ctypes.c_size_t
 
 _SIGNATURES = {
     "ps_cc_with_stats": (_int, [_u8p, _int, _int, _int, _i32p, _i32p, _f64p, _int]),
@@ -47,6 +49,11 @@ _SIGNATURES = {
     "ps_draw_lines": (_int, [_u8p, _int, _int, _int, _int, _i32p, _u8p, _int]),
     "ps_flax_draw": (None, [ctypes.c_uint32, ctypes.c_uint32, _int, ctypes.c_float,
                             ctypes.c_int64, ctypes.c_int64, _f32p]),
+    "ps_zstd_decompress": (ctypes.c_void_p, [_u8p, _size, ctypes.POINTER(_size),
+                                             ctypes.c_char_p, _int]),
+    "ps_zstd_decompress_into": (ctypes.c_int64, [_u8p, _size, _u8p, _size, ctypes.c_char_p, _int]),
+    "ps_free": (None, [ctypes.c_void_p]),
+    "ps_crc32c": (ctypes.c_uint32, [_u8p, _size, ctypes.c_uint32]),
 }
 
 
@@ -82,6 +89,45 @@ def flax_draw(key, law: int, scale: np.float32, start: int, out: np.ndarray) -> 
     if law not in (0, 1):
         raise ValueError(f"law must be 0 (glorot_uniform) or 1 (lecun_normal), got {law}")
     get_lib().ps_flax_draw(int(key[0]), int(key[1]), law, float(scale), int(start), out.size, out)
+
+
+def _bytes_u8(data) -> np.ndarray:
+    """A bytes-like object as a uint8 array over the same memory."""
+    return np.frombuffer(memoryview(data).cast("B"), np.uint8)
+
+
+def zstd_decompress(data, out: Optional[np.ndarray] = None):
+    """The content of the zstd frames (RFC 8878) in ``data``, one or more,
+    skippable frames skipped, as bytes; or written into ``out`` (a
+    contiguous uint8 array), which it must fill exactly, and ``out``
+    returned.  Corrupt or truncated input, or a frame that needs a
+    dictionary, raises ``ValueError``."""
+    src = _bytes_u8(data)
+    err = ctypes.create_string_buffer(256)
+    if out is not None:
+        if out.dtype != np.uint8 or out.ndim != 1 or not out.flags.c_contiguous \
+                or not out.flags.writeable:
+            raise ValueError("out must be a writable contiguous 1-D uint8 array")
+        written = get_lib().ps_zstd_decompress_into(src, src.size, out, out.size, err, len(err))
+        if written < 0:
+            raise ValueError(err.value.decode())
+        if written != out.size:
+            raise ValueError(f"zstd: {written} bytes of content, not the {out.size} expected")
+        return out
+    out_len = _size(0)
+    ptr = get_lib().ps_zstd_decompress(src, src.size, ctypes.byref(out_len), err, len(err))
+    if not ptr:
+        raise ValueError(err.value.decode())
+    try:
+        return ctypes.string_at(ptr, out_len.value)
+    finally:
+        get_lib().ps_free(ptr)
+
+
+def crc32c(data, crc: int = 0) -> int:
+    """CRC-32C (Castagnoli) of ``data``, continuing from ``crc``."""
+    src = _bytes_u8(data)
+    return int(get_lib().ps_crc32c(src, src.size, crc))
 
 
 def cc_with_stats(image: np.ndarray, connectivity: int = 4):

@@ -6,19 +6,25 @@
 // segmentation and PageXML paths: external contour tracing, bit-packed
 // binary morphology, PNG row unfiltering, sub-byte index packing, and a
 // rasterizer that draws PIL's polygons and lines.  And the values of flax's
-// kernel initializers for a fresh model (models/flax_init.py).  These run on
-// the host, GIL-free through ctypes; they are not device kernels.
+// kernel initializers for a fresh model (models/flax_init.py).  And a zstd
+// decoder and CRC-32C for the training checkpoints in orbax's layout
+// (train/orbax_format.py).  These run on the host, GIL-free through ctypes;
+// they are not device kernels.
 //
 // Built at first use by native/__init__.py (g++ -O3 -shared).  Outputs are
 // byte-identical to page_segmentation_tpu's native library, which
 // tests/test_torch_native.py and tests/test_torch_segmentation.py check;
-// the initializers' values to JAX's (tests/test_torch_flax_init.py).
+// the initializers' values to JAX's (tests/test_torch_flax_init.py); the
+// zstd decoder's output to the zstandard package's (tests/test_torch_orbax_zstd.py).
 
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <stdexcept>
+#include <string>
 #include <utility>
 #include <vector>
 
@@ -1275,6 +1281,715 @@ void ps_flax_draw(uint32_t k0, uint32_t k1, int law, float scale, int64_t start,
         for (int64_t i = 0; i < n; ++i)
             out[i] = flax::truncated_normal(flax::unit(flax::bits(k0, k1, first + i))) * scale;
     }
+}
+
+}  // extern "C"
+
+// ------------------------------------------------------------------ zstd
+// A decoder of Zstandard frames (RFC 8878): raw, RLE and compressed blocks;
+// raw, RLE, Huffman (1 or 4 streams) and treeless literals; sequences with
+// predefined, RLE, FSE and repeated tables and the three repeat offsets;
+// skippable frames; the XXH64 content checksum.  Frames that name a
+// dictionary are refused.  Every read and write is bounds-checked: corrupt
+// input throws, and the C entry turns that into an error message.
+
+namespace zstd {
+
+[[noreturn]] void fail(const char* msg) { throw std::runtime_error(msg); }
+
+constexpr size_t kBlockMax = 128 * 1024;
+
+inline int highbit(uint32_t v) { return 31 - __builtin_clz(v); }
+
+// 64 bits little-endian from byte i of [p, p + n), zeros outside it
+inline uint64_t load64(const uint8_t* p, size_t n, size_t i) {
+    if (i + 8 <= n) {
+        uint64_t v;
+        std::memcpy(&v, p + i, 8);
+        return v;
+    }
+    uint64_t v = 0;
+    for (size_t k = 0; k < 8 && i + k < n; ++k) v |= static_cast<uint64_t>(p[i + k]) << (8 * k);
+    return v;
+}
+
+// bits [lo, lo + nb) of the little-endian number p[0..n), nb <= 32; bits
+// below 0 read as zeros
+inline uint32_t bits_at(const uint8_t* p, size_t n, int64_t lo, int nb) {
+    if (nb == 0) return 0;
+    const uint64_t mask = (uint64_t(1) << nb) - 1;
+    if (lo >= 0) return static_cast<uint32_t>((load64(p, n, lo >> 3) >> (lo & 7)) & mask);
+    if (lo + nb <= 0) return 0;
+    return static_cast<uint32_t>((load64(p, n, 0) << (-lo)) & mask);
+}
+
+// A bitstream read backwards from its last byte, whose highest set bit
+// marks the end.  Reading past its start yields zeros and leaves pos < 0.
+// A 64-bit window of the stream, refilled as the reads pass its low end,
+// serves the reads.
+struct BackBits {
+    const uint8_t* p = nullptr;
+    size_t n = 0;
+    int64_t pos = 0;  // bits left to read
+    int64_t low = 0;  // the stream bit at the window's bit 0 (a multiple of 8)
+    uint64_t window = 0;
+    BackBits(const uint8_t* src, size_t len) : p(src), n(len) {
+        if (len == 0) fail("zstd: empty bitstream");
+        if (src[len - 1] == 0) fail("zstd: bitstream without its end mark");
+        pos = static_cast<int64_t>(len - 1) * 8 + highbit(src[len - 1]);
+        refill();
+    }
+    void refill() {
+        low = pos > 56 ? ((pos - 56) & ~int64_t(7)) : 0;
+        window = load64(p, n, static_cast<size_t>(low >> 3));
+    }
+    // bits [pos - nb, pos), nb <= 32
+    uint32_t peek(int nb) {
+        if (pos - nb < low && low > 0) refill();
+        const int64_t shift = pos - nb - low;
+        const uint64_t mask = (uint64_t(1) << nb) - 1;
+        if (shift >= 0) return static_cast<uint32_t>((window >> shift) & mask);
+        if (-shift >= nb) return 0;  // all below the stream's start
+        return static_cast<uint32_t>((window << -shift) & mask);
+    }
+    uint32_t read(int nb) {
+        if (nb == 0) return 0;
+        const uint32_t v = peek(nb);
+        pos -= nb;
+        return v;
+    }
+};
+
+// The decoded bytes: a caller's buffer of fixed size, or one that grows
+struct Out {
+    uint8_t* data = nullptr;
+    size_t len = 0, cap = 0;
+    bool fixed = false;
+    Out() = default;
+    Out(uint8_t* buf, size_t size) : data(buf), cap(size), fixed(true) {}
+    Out(const Out&) = delete;
+    Out& operator=(const Out&) = delete;
+    ~Out() {
+        if (!fixed) std::free(data);
+    }
+    void reserve(size_t more) {
+        if (more <= cap - len) return;
+        if (fixed) fail("zstd: content larger than the output buffer");
+        void* q = std::realloc(data, len + more);
+        if (!q) fail("zstd: out of memory");
+        data = static_cast<uint8_t*>(q);
+        cap = len + more;
+    }
+    // room for n more bytes; returns where they go
+    uint8_t* grow(size_t n) {
+        if (n > cap - len) reserve(std::max(n, std::max(cap, size_t(1) << 16)));  // doubles
+        uint8_t* at = data + len;
+        len += n;
+        return at;
+    }
+    uint8_t* release() {
+        uint8_t* q = data;
+        data = nullptr;
+        return q;
+    }
+};
+
+// A bitstream read forwards (the FSE table descriptions)
+struct FwdBits {
+    const uint8_t* p;
+    size_t n;
+    int64_t pos = 0;
+    FwdBits(const uint8_t* src, size_t len) : p(src), n(len) {}
+    uint32_t peek(int nb) const { return bits_at(p, n, pos, nb); }
+    uint32_t read(int nb) {
+        const uint32_t v = peek(nb);
+        pos += nb;
+        return v;
+    }
+    size_t bytes() const { return static_cast<size_t>((pos + 7) >> 3); }
+};
+
+struct FseEntry {
+    uint16_t symbol;
+    uint8_t nbits;
+    uint16_t base;
+};
+
+struct Fse {
+    int log = -1;  // -1: no table
+    std::vector<FseEntry> t;
+};
+
+void fse_build(Fse& f, const int16_t* norm, int nsym, int log) {
+    const uint32_t size = 1u << log;
+    f.log = log;
+    f.t.assign(size, FseEntry{0, 0, 0});
+    std::vector<uint32_t> next(nsym);
+    uint32_t high = size - 1;
+    for (int s = 0; s < nsym; ++s) {
+        if (norm[s] == -1) {
+            f.t[high--].symbol = static_cast<uint16_t>(s);
+            next[s] = 1;
+        } else {
+            next[s] = static_cast<uint32_t>(norm[s]);
+        }
+    }
+    const uint32_t step = (size >> 1) + (size >> 3) + 3, mask = size - 1;
+    uint32_t pos = 0;
+    for (int s = 0; s < nsym; ++s)
+        for (int i = 0; i < norm[s]; ++i) {
+            f.t[pos].symbol = static_cast<uint16_t>(s);
+            do pos = (pos + step) & mask; while (pos > high);
+        }
+    if (pos != 0) fail("zstd: FSE distribution does not fill its table");
+    for (uint32_t u = 0; u < size; ++u) {
+        const uint32_t state = next[f.t[u].symbol]++;
+        const int nb = log - highbit(state);
+        f.t[u].nbits = static_cast<uint8_t>(nb);
+        f.t[u].base = static_cast<uint16_t>((state << nb) - size);
+    }
+}
+
+// An FSE table description (RFC 8878 §4.1.1); returns the bytes it takes.
+size_t fse_read(Fse& f, const uint8_t* src, size_t len, int max_symbol, int max_log) {
+    if (len == 0) fail("zstd: truncated FSE table description");
+    FwdBits in(src, len);
+    const int log = static_cast<int>(in.read(4)) + 5;
+    if (log > max_log) fail("zstd: FSE accuracy log too large");
+    int16_t norm[256] = {0};
+    int remaining = (1 << log) + 1, threshold = 1 << log, nbits = log + 1, sym = 0;
+    bool previous0 = false;
+    while (remaining > 1 && sym <= max_symbol) {
+        if (previous0) {
+            int n0 = sym;
+            uint32_t r;
+            while ((r = in.read(2)) == 3) n0 += 3;
+            n0 += static_cast<int>(r);
+            if (n0 > max_symbol) fail("zstd: FSE zero run past the last symbol");
+            sym = n0;
+        }
+        const int max = (2 * threshold - 1) - remaining;
+        int count;
+        const uint32_t low = in.peek(nbits);
+        if (static_cast<int>(low & (threshold - 1)) < max) {
+            count = static_cast<int>(low & (threshold - 1));
+            in.pos += nbits - 1;
+        } else {
+            count = static_cast<int>(low & (2 * threshold - 1));
+            if (count >= threshold) count -= max;
+            in.pos += nbits;
+        }
+        count -= 1;
+        remaining -= count < 0 ? -count : count;
+        norm[sym++] = static_cast<int16_t>(count);
+        previous0 = count == 0;
+        while (remaining < threshold) {
+            --nbits;
+            threshold >>= 1;
+        }
+    }
+    if (remaining != 1) fail("zstd: corrupt FSE distribution");
+    if (in.bytes() > len) fail("zstd: truncated FSE table description");
+    fse_build(f, norm, sym, log);
+    return in.bytes();
+}
+
+void fse_rle(Fse& f, uint8_t symbol) {
+    f.log = 0;
+    f.t.assign(1, FseEntry{symbol, 0, 0});
+}
+
+struct Huf {
+    int maxbits = 0;  // 0: no table
+    std::vector<uint16_t> entry;  // the symbol | its code length << 8
+};
+
+// A Huffman tree description (RFC 8878 §4.2.1); returns the bytes it takes.
+size_t huf_read(Huf& h, const uint8_t* src, size_t len) {
+    if (len == 0) fail("zstd: truncated Huffman tree description");
+    uint8_t w[256];
+    int nw = 0;
+    size_t used;
+    const int header = src[0];
+    if (header >= 128) {
+        nw = header - 127;
+        used = 1 + static_cast<size_t>((nw + 1) / 2);
+        if (used > len) fail("zstd: truncated Huffman weights");
+        for (int i = 0; i < nw; ++i) w[i] = (i & 1) ? (src[1 + i / 2] & 15) : (src[1 + i / 2] >> 4);
+    } else {
+        used = 1 + static_cast<size_t>(header);
+        if (used > len || header == 0) fail("zstd: truncated Huffman weights");
+        Fse f;
+        const size_t d = fse_read(f, src + 1, header, 255, 6);
+        if (d >= static_cast<size_t>(header)) fail("zstd: Huffman weights without a bitstream");
+        BackBits in(src + 1 + d, header - d);
+        uint32_t s1 = in.read(f.log), s2 = in.read(f.log);
+        // two interleaved states; the stream ends when a read passes its start
+        for (;;) {
+            if (nw > 254) fail("zstd: too many Huffman weights");
+            w[nw++] = static_cast<uint8_t>(f.t[s1].symbol);
+            s1 = f.t[s1].base + in.read(f.t[s1].nbits);
+            if (in.pos < 0) {
+                w[nw++] = static_cast<uint8_t>(f.t[s2].symbol);
+                break;
+            }
+            if (nw > 254) fail("zstd: too many Huffman weights");
+            w[nw++] = static_cast<uint8_t>(f.t[s2].symbol);
+            s2 = f.t[s2].base + in.read(f.t[s2].nbits);
+            if (in.pos < 0) {
+                w[nw++] = static_cast<uint8_t>(f.t[s1].symbol);
+                break;
+            }
+        }
+        if (nw > 255) fail("zstd: too many Huffman weights");
+    }
+    uint32_t total = 0;
+    for (int i = 0; i < nw; ++i) {
+        if (w[i] > 11) fail("zstd: Huffman weight above 11");
+        if (w[i]) total += 1u << (w[i] - 1);
+    }
+    if (total == 0) fail("zstd: Huffman weights all zero");
+    const int maxbits = highbit(total) + 1;
+    if (maxbits > 11) fail("zstd: Huffman code longer than 11 bits");
+    const uint32_t rest = (1u << maxbits) - total;
+    if (rest & (rest - 1)) fail("zstd: Huffman weights do not complete a tree");
+    w[nw++] = static_cast<uint8_t>(highbit(rest) + 1);
+    h.maxbits = maxbits;
+    h.entry.assign(size_t(1) << maxbits, 0);
+    size_t pos = 0;
+    for (int weight = 1; weight <= maxbits; ++weight)
+        for (int s = 0; s < nw; ++s)
+            if (w[s] == weight) {
+                const size_t n = size_t(1) << (weight - 1);
+                std::fill(h.entry.begin() + pos, h.entry.begin() + pos + n,
+                          static_cast<uint16_t>(s | ((maxbits + 1 - weight) << 8)));
+                pos += n;
+            }
+    return used;
+}
+
+// Decode k Huffman streams (1 or 4) into their outputs, in lockstep while
+// every stream has 4 symbols of bits left above its start (the streams'
+// lookups then overlap), then each to its end, which must be exact.
+void huf_streams(const Huf& h, int k, const uint8_t* const* src, const size_t* len,
+                 uint8_t* const* out, const size_t* n) {
+    const int mb = h.maxbits;
+    const uint64_t mask = (uint64_t(1) << mb) - 1;
+    const uint16_t* table = h.entry.data();
+    std::vector<BackBits> in;
+    in.reserve(k);
+    for (int j = 0; j < k; ++j) in.emplace_back(src[j], len[j]);
+    size_t done = 0, common = n[0];
+    for (int j = 1; j < k; ++j) common = std::min(common, n[j]);
+    for (;;) {
+        bool room = done + 4 <= common;
+        for (int j = 0; j < k && room; ++j) room = in[j].pos >= 4 * mb;
+        if (!room) break;
+        for (int j = 0; j < k; ++j)
+            if (in[j].pos - 4 * mb < in[j].low) in[j].refill();
+        for (int step = 0; step < 4; ++step, ++done)
+            for (int j = 0; j < k; ++j) {
+                BackBits& b = in[j];
+                const uint16_t e = table[(b.window >> (b.pos - mb - b.low)) & mask];
+                out[j][done] = static_cast<uint8_t>(e);
+                b.pos -= e >> 8;
+            }
+    }
+    for (int j = 0; j < k; ++j) {
+        BackBits& b = in[j];
+        for (size_t i = done; i < n[j]; ++i) {
+            const uint16_t e = table[b.peek(mb)];
+            out[j][i] = static_cast<uint8_t>(e);
+            b.pos -= e >> 8;
+        }
+        if (b.pos != 0) fail("zstd: Huffman stream not consumed exactly");
+    }
+}
+
+const int16_t kLLNorm[36] = {4, 3, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 1, 1, 1, 2, 2,
+                             2, 2, 2, 2, 2, 2, 2, 3, 2, 1, 1, 1, 1, 1, -1, -1, -1, -1};
+const int16_t kMLNorm[53] = {1, 4, 3, 2, 2, 2, 2, 2, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                             1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                             1, 1, 1, 1, 1, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1, -1, -1};
+const int16_t kOFNorm[29] = {1, 1, 1, 1, 1, 1, 2, 2, 2, 1, 1, 1, 1, 1, 1,
+                             1, 1, 1, 1, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
+const uint32_t kLLBase[36] = {0,  1,  2,  3,  4,  5,  6,  7,  8,    9,    10,   11,
+                              12, 13, 14, 15, 16, 18, 20, 22, 24,   28,   32,   40,
+                              48, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536};
+const uint8_t kLLBits[36] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,  0,  0,  1,  1,
+                             1, 1, 2, 2, 3, 3, 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
+const uint32_t kMLBase[53] = {3,  4,  5,  6,  7,  8,  9,  10, 11, 12, 13, 14, 15, 16,
+                              17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30,
+                              31, 32, 33, 34, 35, 37, 39, 41, 43, 47, 51, 59, 67, 83,
+                              99, 131, 259, 515, 1027, 2051, 4099, 8195, 16387, 32771, 65539};
+const uint8_t kMLBits[53] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                             0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1,
+                             2, 2, 3, 3, 4, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
+
+// What carries from block to block within a frame
+struct FrameState {
+    Huf huf;
+    Fse ll, of, ml;
+    uint32_t rep[3] = {1, 4, 8};
+};
+
+size_t read_literals(FrameState& st, const uint8_t* src, size_t len, std::vector<uint8_t>& lit) {
+    if (len == 0) fail("zstd: truncated literals section");
+    const int type = src[0] & 3, format = (src[0] >> 2) & 3;
+    if (type < 2) {  // raw or RLE
+        size_t hs, regen;
+        if (format == 0 || format == 2) {
+            hs = 1;
+            regen = src[0] >> 3;
+        } else if (format == 1) {
+            hs = 2;
+            if (len < hs) fail("zstd: truncated literals header");
+            regen = (src[0] >> 4) + (size_t(src[1]) << 4);
+        } else {
+            hs = 3;
+            if (len < hs) fail("zstd: truncated literals header");
+            regen = (src[0] >> 4) + (size_t(src[1]) << 4) + (size_t(src[2]) << 12);
+        }
+        if (regen > kBlockMax) fail("zstd: literals larger than a block");
+        if (type == 0) {
+            if (hs + regen > len) fail("zstd: truncated raw literals");
+            lit.assign(src + hs, src + hs + regen);
+            return hs + regen;
+        }
+        if (hs + 1 > len) fail("zstd: truncated RLE literals");
+        lit.assign(regen, src[hs]);
+        return hs + 1;
+    }
+    const size_t hs = format < 2 ? 3 : format == 2 ? 4 : 5;
+    if (len < hs) fail("zstd: truncated literals header");
+    uint64_t v = 0;
+    for (size_t i = 0; i < hs; ++i) v |= uint64_t(src[i]) << (8 * i);
+    const int width = format < 2 ? 10 : format == 2 ? 14 : 18;
+    const size_t regen = (v >> 4) & ((uint64_t(1) << width) - 1);
+    const size_t csize = (v >> (4 + width)) & ((uint64_t(1) << width) - 1);
+    if (regen > kBlockMax) fail("zstd: literals larger than a block");
+    if (hs + csize > len) fail("zstd: truncated compressed literals");
+    const uint8_t* p = src + hs;
+    size_t rem = csize;
+    if (type == 2) {
+        const size_t used = huf_read(st.huf, p, rem);
+        p += used;
+        rem -= used;
+    } else if (st.huf.maxbits == 0) {
+        fail("zstd: treeless literals without an earlier Huffman table");
+    }
+    lit.resize(regen);
+    if (format == 0) {
+        uint8_t* out = lit.data();
+        huf_streams(st.huf, 1, &p, &rem, &out, &regen);
+    } else {
+        if (rem < 6) fail("zstd: truncated literals jump table");
+        const size_t s1 = p[0] | (p[1] << 8), s2 = p[2] | (p[3] << 8), s3 = p[4] | (p[5] << 8);
+        if (6 + s1 + s2 + s3 > rem) fail("zstd: literals jump table past its section");
+        const size_t s4 = rem - 6 - s1 - s2 - s3, seg = (regen + 3) / 4;
+        if (3 * seg > regen) fail("zstd: too few literals for 4 streams");
+        const uint8_t* q = p + 6;
+        const uint8_t* srcs[4] = {q, q + s1, q + s1 + s2, q + s1 + s2 + s3};
+        const size_t lens[4] = {s1, s2, s3, s4}, counts[4] = {seg, seg, seg, regen - 3 * seg};
+        uint8_t* outs[4] = {lit.data(), lit.data() + seg, lit.data() + 2 * seg, lit.data() + 3 * seg};
+        huf_streams(st.huf, 4, srcs, lens, outs, counts);
+    }
+    return hs + csize;
+}
+
+size_t read_table(Fse& f, int mode, const uint8_t* src, size_t len, const int16_t* norm,
+                  int nsym, int log, int max_symbol, int max_log) {
+    switch (mode) {
+        case 0:
+            fse_build(f, norm, nsym, log);
+            return 0;
+        case 1:
+            if (len < 1) fail("zstd: truncated RLE sequence table");
+            if (src[0] > max_symbol) fail("zstd: RLE sequence symbol out of range");
+            fse_rle(f, src[0]);
+            return 1;
+        case 2:
+            return fse_read(f, src, len, max_symbol, max_log);
+        default:
+            if (f.log < 0) fail("zstd: repeated sequence table without an earlier one");
+            return 0;
+    }
+}
+
+void copy_match(Out& out, size_t frame_start, size_t offset, size_t length) {
+    if (offset == 0 || offset > out.len - frame_start) fail("zstd: match offset out of range");
+    uint8_t* dst = out.grow(length);
+    const uint8_t* from = dst - offset;
+    if (offset >= length) {
+        std::memcpy(dst, from, length);
+    } else if (offset >= 8) {  // 8-byte steps, each from bytes already written
+        size_t i = 0;
+        for (; i + 8 <= length; i += 8) std::memcpy(dst + i, from + i, 8);
+        for (; i < length; ++i) dst[i] = from[i];
+    } else {
+        for (size_t i = 0; i < length; ++i) dst[i] = from[i];
+    }
+}
+
+void compressed_block(FrameState& st, const uint8_t* src, size_t len, Out& out,
+                      size_t frame_start, std::vector<uint8_t>& lit) {
+    const size_t block_start = out.len;
+    size_t p = read_literals(st, src, len, lit);
+    if (p >= len) fail("zstd: truncated sequences section");
+    size_t nseq = src[p];
+    if (nseq < 128) {
+        p += 1;
+    } else if (nseq < 255) {
+        if (p + 2 > len) fail("zstd: truncated sequence count");
+        nseq = ((nseq - 128) << 8) + src[p + 1];
+        p += 2;
+    } else {
+        if (p + 3 > len) fail("zstd: truncated sequence count");
+        nseq = src[p + 1] + (size_t(src[p + 2]) << 8) + 0x7F00;
+        p += 3;
+    }
+    size_t lit_pos = 0;
+    if (nseq > 0) {
+        if (p >= len) fail("zstd: truncated sequence modes");
+        const int modes = src[p++];
+        if (modes & 3) fail("zstd: reserved bits of the sequence modes set");
+        p += read_table(st.ll, modes >> 6, src + p, len - p, kLLNorm, 36, 6, 35, 9);
+        p += read_table(st.of, (modes >> 4) & 3, src + p, len - p, kOFNorm, 29, 5, 31, 8);
+        p += read_table(st.ml, (modes >> 2) & 3, src + p, len - p, kMLNorm, 53, 6, 52, 9);
+        if (p >= len) fail("zstd: sequences without a bitstream");
+        BackBits in(src + p, len - p);
+        uint32_t sll = in.read(st.ll.log), sof = in.read(st.of.log), sml = in.read(st.ml.log);
+        for (size_t i = 0; i < nseq; ++i) {
+            const FseEntry &ell = st.ll.t[sll], &eof = st.of.t[sof], &eml = st.ml.t[sml];
+            const int ofc = eof.symbol;
+            if (ofc > 31) fail("zstd: offset code out of range");
+            const uint32_t ofv = static_cast<uint32_t>((uint64_t(1) << ofc) + in.read(ofc));
+            const size_t ml = kMLBase[eml.symbol] + in.read(kMLBits[eml.symbol]);
+            const size_t ll = kLLBase[ell.symbol] + in.read(kLLBits[ell.symbol]);
+            size_t offset;
+            if (ofv > 3) {
+                offset = ofv - 3;
+                st.rep[2] = st.rep[1];
+                st.rep[1] = st.rep[0];
+                st.rep[0] = static_cast<uint32_t>(offset);
+            } else {
+                const uint32_t idx = ofv + (ll == 0 ? 1 : 0);
+                if (idx == 1) {
+                    offset = st.rep[0];
+                } else {
+                    offset = idx == 2 ? st.rep[1] : idx == 3 ? st.rep[2] : st.rep[0] - 1;
+                    if (idx != 2) st.rep[2] = st.rep[1];
+                    st.rep[1] = st.rep[0];
+                    st.rep[0] = static_cast<uint32_t>(offset);
+                }
+            }
+            if (i + 1 < nseq) {
+                sll = ell.base + in.read(ell.nbits);
+                sml = eml.base + in.read(eml.nbits);
+                sof = eof.base + in.read(eof.nbits);
+            }
+            if (ll > lit.size() - lit_pos) fail("zstd: sequence takes more literals than decoded");
+            if (ll) std::memcpy(out.grow(ll), lit.data() + lit_pos, ll);
+            lit_pos += ll;
+            if (out.len + ml - block_start > kBlockMax) fail("zstd: block decodes past 128 KiB");
+            copy_match(out, frame_start, offset, ml);
+        }
+        if (in.pos != 0) fail("zstd: sequence bitstream not consumed exactly");
+    } else if (p != len) {
+        fail("zstd: bytes after an empty sequences section");
+    }
+    if (lit.size() > lit_pos) std::memcpy(out.grow(lit.size() - lit_pos), lit.data() + lit_pos,
+                                          lit.size() - lit_pos);
+    if (out.len - block_start > kBlockMax) fail("zstd: block decodes past 128 KiB");
+}
+
+inline uint64_t rotl(uint64_t x, int r) { return (x << r) | (x >> (64 - r)); }
+
+uint64_t xxh64(const uint8_t* p, size_t n, uint64_t seed) {
+    const uint64_t P1 = 11400714785074694791ULL, P2 = 14029467366897019727ULL,
+                   P3 = 1609587929392839161ULL, P4 = 9650029242287828579ULL,
+                   P5 = 2870177450012600261ULL;
+    auto rd64 = [&](size_t i) { uint64_t v; std::memcpy(&v, p + i, 8); return v; };
+    auto round = [&](uint64_t acc, uint64_t in) { return rotl(acc + in * P2, 31) * P1; };
+    size_t i = 0;
+    uint64_t h;
+    if (n >= 32) {
+        uint64_t v1 = seed + P1 + P2, v2 = seed + P2, v3 = seed, v4 = seed - P1;
+        for (; i + 32 <= n; i += 32) {
+            v1 = round(v1, rd64(i));
+            v2 = round(v2, rd64(i + 8));
+            v3 = round(v3, rd64(i + 16));
+            v4 = round(v4, rd64(i + 24));
+        }
+        h = rotl(v1, 1) + rotl(v2, 7) + rotl(v3, 12) + rotl(v4, 18);
+        for (uint64_t v : {v1, v2, v3, v4}) h = (h ^ round(0, v)) * P1 + P4;
+    } else {
+        h = seed + P5;
+    }
+    h += n;
+    for (; i + 8 <= n; i += 8) h = rotl(h ^ round(0, rd64(i)), 27) * P1 + P4;
+    if (i + 4 <= n) {
+        uint32_t v;
+        std::memcpy(&v, p + i, 4);
+        h = rotl(h ^ (uint64_t(v) * P1), 23) * P2 + P3;
+        i += 4;
+    }
+    for (; i < n; ++i) h = rotl(h ^ (p[i] * P5), 11) * P1;
+    h ^= h >> 33;
+    h *= P2;
+    h ^= h >> 29;
+    h *= P3;
+    h ^= h >> 32;
+    return h;
+}
+
+inline uint32_t le32(const uint8_t* p) { return p[0] | (p[1] << 8) | (p[2] << 16) | (uint32_t(p[3]) << 24); }
+
+void decompress(const uint8_t* src, size_t n, Out& out) {
+    if (n == 0) fail("zstd: no frame in empty input");
+    std::vector<uint8_t> lit;
+    size_t pos = 0;
+    while (pos < n) {
+        if (n - pos < 4) fail("zstd: truncated frame magic");
+        const uint32_t magic = le32(src + pos);
+        pos += 4;
+        if ((magic & 0xFFFFFFF0u) == 0x184D2A50u) {  // skippable frame
+            if (n - pos < 4) fail("zstd: truncated skippable frame");
+            const size_t size = le32(src + pos);
+            pos += 4;
+            if (size > n - pos) fail("zstd: truncated skippable frame");
+            pos += size;
+            continue;
+        }
+        if (magic != 0xFD2FB528u) fail("zstd: not a zstd frame (bad magic number)");
+        if (pos >= n) fail("zstd: truncated frame header");
+        const int fhd = src[pos++];
+        const int fcs_flag = fhd >> 6, single = (fhd >> 5) & 1, checksum = (fhd >> 2) & 1;
+        if (fhd & 8) fail("zstd: reserved bit of the frame header set");
+        uint64_t window = 0;
+        if (!single) {
+            if (pos >= n) fail("zstd: truncated frame header");
+            const int wd = src[pos++];
+            const uint64_t base = uint64_t(1) << (10 + (wd >> 3));
+            window = base + (base / 8) * (wd & 7);
+        }
+        static const size_t kDidSize[4] = {0, 1, 2, 4}, kFcsSize[4] = {0, 2, 4, 8};
+        const size_t did_size = kDidSize[fhd & 3];
+        const size_t fcs_size = fcs_flag == 0 && single ? 1 : kFcsSize[fcs_flag];
+        if (n - pos < did_size + fcs_size) fail("zstd: truncated frame header");
+        uint64_t dict_id = 0;
+        for (size_t i = 0; i < did_size; ++i) dict_id |= uint64_t(src[pos + i]) << (8 * i);
+        if (dict_id != 0) fail("zstd: frames that need a dictionary are not supported");
+        pos += did_size;
+        uint64_t fcs = 0;
+        for (size_t i = 0; i < fcs_size; ++i) fcs |= uint64_t(src[pos + i]) << (8 * i);
+        if (fcs_size == 2) fcs += 256;
+        pos += fcs_size;
+        if (single) window = fcs;
+        const size_t block_max = static_cast<size_t>(std::min<uint64_t>(window, kBlockMax));
+        if (fcs_size && !out.fixed && fcs <= (uint64_t(1) << 34)) out.reserve(fcs);
+        const size_t frame_start = out.len;
+        FrameState st;
+        for (bool last = false; !last;) {
+            if (n - pos < 3) fail("zstd: truncated block header");
+            const uint32_t bh = src[pos] | (src[pos + 1] << 8) | (src[pos + 2] << 16);
+            pos += 3;
+            last = bh & 1;
+            const int type = (bh >> 1) & 3;
+            const size_t size = bh >> 3;
+            if (size > block_max) fail("zstd: block larger than its maximum");
+            if (type == 1) {
+                if (pos >= n) fail("zstd: truncated RLE block");
+                if (size) std::memset(out.grow(size), src[pos], size);
+                pos += 1;
+                continue;
+            }
+            if (size > n - pos) fail("zstd: truncated block");
+            if (type == 0) {
+                if (size) std::memcpy(out.grow(size), src + pos, size);
+            } else if (type == 2) {
+                compressed_block(st, src + pos, size, out, frame_start, lit);
+            } else {
+                fail("zstd: reserved block type");
+            }
+            pos += size;
+        }
+        if (fcs_size && out.len - frame_start != fcs) fail("zstd: frame content size mismatch");
+        if (checksum) {
+            if (n - pos < 4) fail("zstd: truncated content checksum");
+            const uint32_t want = le32(src + pos);
+            pos += 4;
+            const uint64_t got = xxh64(out.data + frame_start, out.len - frame_start, 0);
+            if (static_cast<uint32_t>(got) != want) fail("zstd: content checksum mismatch");
+        }
+    }
+}
+
+uint32_t crc32c_table[8][256];
+
+void crc32c_init() {
+    for (uint32_t i = 0; i < 256; ++i) {
+        uint32_t c = i;
+        for (int k = 0; k < 8; ++k) c = (c & 1) ? (c >> 1) ^ 0x82F63B78u : c >> 1;
+        crc32c_table[0][i] = c;
+    }
+    for (uint32_t i = 0; i < 256; ++i)
+        for (int t = 1; t < 8; ++t)
+            crc32c_table[t][i] = (crc32c_table[t - 1][i] >> 8) ^ crc32c_table[0][crc32c_table[t - 1][i] & 0xFF];
+}
+
+}  // namespace zstd
+
+extern "C" {
+
+// Decompress the zstd frames of src[0..n): returns a malloc'd buffer of
+// *out_len bytes (free it with ps_free), or null with the reason in err.
+void* ps_zstd_decompress(const uint8_t* src, size_t n, size_t* out_len, char* err, int err_len) {
+    try {
+        zstd::Out out;
+        zstd::decompress(src, n, out);
+        out.reserve(1);  // a buffer also for empty content
+        *out_len = out.len;
+        return out.release();
+    } catch (const std::exception& e) {
+        std::snprintf(err, static_cast<size_t>(err_len), "%s", e.what());
+        return nullptr;
+    }
+}
+
+// Decompress into dst[0..cap): returns the bytes written, or -1 with the
+// reason in err (also when the content does not fit).
+int64_t ps_zstd_decompress_into(const uint8_t* src, size_t n, uint8_t* dst, size_t cap, char* err,
+                                int err_len) {
+    try {
+        zstd::Out out(dst, cap);
+        zstd::decompress(src, n, out);
+        return static_cast<int64_t>(out.len);
+    } catch (const std::exception& e) {
+        std::snprintf(err, static_cast<size_t>(err_len), "%s", e.what());
+        return -1;
+    }
+}
+
+void ps_free(void* p) { std::free(p); }
+
+// CRC-32C (Castagnoli) of src[0..n), continuing from crc (0 to start)
+uint32_t ps_crc32c(const uint8_t* src, size_t n, uint32_t crc) {
+    static const bool ready = (zstd::crc32c_init(), true);
+    (void)ready;
+    crc = ~crc;
+    size_t i = 0;
+    for (; i + 8 <= n; i += 8) {
+        uint64_t v;
+        std::memcpy(&v, src + i, 8);
+        v ^= crc;
+        crc = zstd::crc32c_table[7][v & 0xFF] ^ zstd::crc32c_table[6][(v >> 8) & 0xFF] ^
+              zstd::crc32c_table[5][(v >> 16) & 0xFF] ^ zstd::crc32c_table[4][(v >> 24) & 0xFF] ^
+              zstd::crc32c_table[3][(v >> 32) & 0xFF] ^ zstd::crc32c_table[2][(v >> 40) & 0xFF] ^
+              zstd::crc32c_table[1][(v >> 48) & 0xFF] ^ zstd::crc32c_table[0][v >> 56];
+    }
+    for (; i < n; ++i) crc = zstd::crc32c_table[0][(crc ^ src[i]) & 0xFF] ^ (crc >> 8);
+    return ~crc;
 }
 
 }  // extern "C"

@@ -41,8 +41,9 @@ class PageSegmenter:
     the JAX package's default, which means host there too) runs the native
     bit-packed chain (``native.bitmorph_chain``) page by page; "device"
     runs the batched torch chain on ``device`` and raises where that
-    device is missing, never falling back to the host.  XY-cut mode is
-    always host.
+    device is missing, never falling back to the host.  XY-cut mode (no
+    ``text_contours``) is always host and touches no device, as in the JAX
+    package.
     """
 
     def __init__(
@@ -67,13 +68,10 @@ class PageSegmenter:
         if backend not in ("auto", "host", "device"):
             raise ValueError(f"backend must be auto, host or device, got {backend!r}")
         self._device = None
-        if backend == "device":
-            from ..device import resolve_device
+        if text_contours and backend == "device":  # the only chain the device runs
             from .device_morph import TextRegionMorphDevice
 
-            resolve_device(device)
-            if text_contours:
-                self._device = TextRegionMorphDevice(device)
+            self._device = TextRegionMorphDevice(device)
 
     # ------------------------------------------------------------- per page
     def _load(self, path: str):

@@ -62,24 +62,11 @@ def _to_py(v):
     return v
 
 
-def _crc32c_table():
-    table = []
-    for n in range(256):
-        for _ in range(8):
-            n = (n >> 1) ^ 0x82F63B78 if n & 1 else n >> 1
-        table.append(n)
-    return table
-
-
-_CRC32C = _crc32c_table()
-
-
 def masked_crc32c(data: bytes) -> int:
     """TFRecord's masked CRC-32C (Castagnoli) of ``data``."""
-    crc = 0xFFFFFFFF
-    for byte in data:
-        crc = _CRC32C[(crc ^ byte) & 0xFF] ^ (crc >> 8)
-    crc ^= 0xFFFFFFFF
+    from ..native import crc32c
+
+    crc = crc32c(data)
     return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
 
 

@@ -22,8 +22,8 @@ packed as an ndarray), plus flax's chunked form of arrays over 1 GiB.  numpy
 has no bfloat16, so a bfloat16 array comes back widened exactly to float32.
 ``train/optim.py`` maps the optimizer state to and from optax's state dict.
 :class:`OrbaxCheckpointer` is the counterpart of the JAX package's
-asynchronous, step-versioned Orbax checkpoints, in a layout of its own: one
-such checkpoint directory per step.
+asynchronous, step-versioned Orbax checkpoints, in orbax's own layout
+(``train/orbax_format.py``).
 """
 from __future__ import annotations
 
@@ -32,10 +32,11 @@ import os
 import shutil
 import struct
 import threading
-import uuid
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+
+from .orbax_format import finished_steps, read_step, write_step
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 _CHUNKED = "__msgpack_chunked_array__"
@@ -361,20 +362,22 @@ def load_meta(path: str) -> Dict[str, Any]:
 
 class OrbaxCheckpointer:
     """Asynchronous, step-versioned training-state checkpoints: the
-    counterpart of the JAX package's Orbax checkpointer (``save``,
-    ``restore``, ``wait``, ``close``), in the port's own layout, since the
-    card's machine has no orbax.  It cannot read the JAX package's Orbax
-    (tensorstore) directories, nor that package read its.
+    counterpart of the JAX package's ``OrbaxCheckpointer`` (``save``,
+    ``restore``, ``wait``, ``close``), in orbax's own layout, so each package
+    reads the other's steps (``train/orbax_format.py``; the card's machine
+    has no orbax):
 
-        <directory>/<step>/params.msgpack     the variables (flax's msgpack)
-        <directory>/<step>/opt_state.msgpack  the optimizer state, when saved
-        <directory>/<step>/meta.json          the training loop's meta
+        <directory>/<step>/state/   {"variables", "opt_state"}: orbax's
+                                    StandardSave item (an OCDBT store of
+                                    zarr v2 arrays)
+        <directory>/<step>/meta/    the training loop's meta: a JsonSave item
 
-    Each step is a :func:`save_checkpoint` directory, so either package's
-    ``load_checkpoint`` reads it.  ``save`` copies the state on the caller's
-    thread and writes it from a background thread into a temporary name,
-    renamed to the step's name when complete (atomic); then the oldest steps
-    beyond ``max_to_keep`` are removed.
+    ``save`` copies the state on the caller's thread and writes it from a
+    background thread under orbax's temporary name, renamed to the step's
+    name when complete; then the oldest steps beyond ``max_to_keep`` are
+    removed.  An error of that thread is raised by the next ``wait``.  In a
+    run of several processes, the caller saves on the primary process only
+    (``Trainer`` does), as with the JAX class's ``CheckpointManager``.
     """
 
     def __init__(self, directory: str, max_to_keep: int = 3):
@@ -385,8 +388,8 @@ class OrbaxCheckpointer:
         self._error: Optional[BaseException] = None
 
     def all_steps(self):
-        """The saved steps, oldest first."""
-        return sorted(int(name) for name in os.listdir(self.directory) if name.isdigit())
+        """The finished steps, oldest first."""
+        return finished_steps(self.directory)
 
     def latest_step(self) -> Optional[int]:
         self.wait()
@@ -397,23 +400,17 @@ class OrbaxCheckpointer:
         """Start writing ``variables`` (and ``opt_state``, a state dict) as
         ``step``; a save still in flight finishes first."""
         self.wait()
-        variables = _copied(dict(variables))
-        opt_state = _copied(opt_state) if opt_state is not None else None
+        state = {"variables": _copied(dict(variables))}
+        if opt_state is not None:
+            state["opt_state"] = _copied(opt_state)
         meta = json.loads(json.dumps(meta or {}, default=str))
-
-        final = os.path.join(self.directory, str(int(step)))
-        tmp = os.path.join(self.directory, f".{int(step)}.tmp-{uuid.uuid4().hex}")
 
         def write():
             try:
-                save_checkpoint(tmp, variables, meta=meta, opt_state=opt_state)
-                if os.path.exists(final):
-                    shutil.rmtree(final)
-                os.rename(tmp, final)
+                write_step(self.directory, step, state, meta)
                 for old in self.all_steps()[: -self.max_to_keep] if self.max_to_keep else []:
                     shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
             except BaseException as exc:  # raised by the next wait()
-                shutil.rmtree(tmp, ignore_errors=True)
                 self._error = exc
 
         self._pending = threading.Thread(target=write, name="checkpoint-writer", daemon=True)
@@ -421,18 +418,14 @@ class OrbaxCheckpointer:
 
     def restore(self, step: Optional[int] = None):
         """``(step, state, meta)`` of ``step`` (default: the newest), with
-        ``state`` = ``{"variables": ..., "opt_state": ...}`` (no
-        ``opt_state`` when none was saved); None without any step."""
+        ``state`` = ``{"variables": ..., "opt_state": ...}`` as orbax's
+        ``StandardRestore`` gives it (no ``opt_state`` when none was saved);
+        None without any step."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
         self.wait()
-        path = os.path.join(self.directory, str(int(step)))
-        variables, meta = load_checkpoint(path)
-        state = {"variables": variables}
-        opt_state = load_opt_state(path)
-        if opt_state is not None:
-            state["opt_state"] = opt_state
+        state, meta = read_step(os.path.join(self.directory, str(int(step))))
         return int(step), state, meta
 
     def wait(self) -> None:
@@ -458,5 +451,8 @@ def _copied(tree):
     if tree is None:
         return None
     if hasattr(tree, "detach"):
-        tree = tree.detach().cpu().numpy()
+        tree = tree.detach().cpu()
+        if str(tree.dtype) == "torch.bfloat16":  # numpy has no bfloat16
+            return tree.clone()
+        tree = tree.numpy()
     return np.array(tree, copy=True)

@@ -4,6 +4,7 @@ Tolerance: none.  For the same params tree the port writes the same
 ``params.msgpack`` bytes as flax's ``msgpack_serialize`` (through the JAX
 package's ``save_checkpoint``) and the same ``meta.json``; each package reads
 the other's file to exactly equal arrays."""
+import json
 import os
 
 import jax
@@ -105,4 +106,7 @@ def test_optimizer_state_is_not_ported(tmp_path):
     ckpt.save(4, {"params": {"w": np.ones(2, np.float32)}}, opt_state={"count": np.int32(1)})
     step, state, _ = ckpt.restore()
     assert step == 4 and int(state["opt_state"]["count"]) == 1
-    assert os.path.exists(tmp_path / "orbax" / "4" / "opt_state.msgpack")
+    # in orbax's layout: an OCDBT store whose tree metadata names the state's leaves
+    assert os.path.exists(tmp_path / "orbax" / "4" / "state" / "manifest.ocdbt")
+    leaves = json.loads((tmp_path / "orbax" / "4" / "state" / "_METADATA").read_text())
+    assert "('opt_state', 'count')" in leaves["tree_metadata"]

@@ -5,10 +5,9 @@ checkpoint_backend="orbax", auto_resume=True)``, on the CPU.
 ``max_to_keep`` prunes the oldest steps; ``restore`` gives the newest step
 (or the one asked for) as ``(step, state, meta)``; a save copies the state
 before it returns and lands under its step's name only when complete; each
-step is a checkpoint directory whose msgpack the JAX package's
-``load_checkpoint`` and ``load_opt_state`` read to equal arrays.  A run
-stopped after 2 epochs and auto-resumed for the third equals the
-uninterrupted 3-epoch run."""
+step is in orbax's layout, which the JAX package's ``OrbaxCheckpointer``
+restores to equal arrays.  A run stopped after 2 epochs and auto-resumed for
+the third equals the uninterrupted 3-epoch run."""
 import json
 import os
 
@@ -16,9 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from page_segmentation_tpu.train.checkpoint import load_checkpoint as jax_load_checkpoint
-from page_segmentation_tpu.train.checkpoint import load_opt_state as jax_load_opt_state
-from page_segmentation_tpu_torch.train import checkpoint
+from page_segmentation_tpu.train.checkpoint import OrbaxCheckpointer as JaxOrbaxCheckpointer
+from page_segmentation_tpu_torch.train import orbax_format
 from page_segmentation_tpu_torch.train.checkpoint import OrbaxCheckpointer
 from page_segmentation_tpu_torch.train.trainer import Trainer
 from tests.test_torch_train_trainer import _dataset, _settings
@@ -68,7 +66,7 @@ def test_save_copies_the_state_and_writes_atomically(tmp_path, monkeypatch):
         os.makedirs(path)
         raise OSError("disk full")
 
-    monkeypatch.setattr(checkpoint, "save_checkpoint", failing)
+    monkeypatch.setattr(orbax_format, "write_state", failing)
     ckpt.save(8, _variables(8))
     with pytest.raises(OSError, match="disk full"):
         ckpt.wait()
@@ -77,18 +75,21 @@ def test_save_copies_the_state_and_writes_atomically(tmp_path, monkeypatch):
 
 def test_step_directory_reads_in_the_jax_package(tmp_path):
     ckpt = OrbaxCheckpointer(str(tmp_path / "orbax"))
-    opt = {"count": np.int32(3), "mu": _variables(0.5)["params"]}
+    opt = {"0": {"count": np.int32(3), "mu": _variables(0.5)["params"]}, "1": {}}
     ckpt.save(1, _variables(1.5), opt_state=opt, meta={"epoch": 1})
     ckpt.wait()
-    variables, meta = jax_load_checkpoint(str(tmp_path / "orbax" / "1"))
-    assert meta == {"epoch": 1}
+    jax_ckpt = JaxOrbaxCheckpointer(str(tmp_path / "orbax"))
+    step, state, meta = jax_ckpt.restore()
+    jax_ckpt.close()
+    assert step == 1 and meta == {"epoch": 1}
     for leaf in ("kernel", "bias"):
-        np.testing.assert_array_equal(np.asarray(variables["params"]["conv"][leaf]),
-                                      _variables(1.5)["params"]["conv"][leaf])
-    restored = jax_load_opt_state(str(tmp_path / "orbax" / "1"))
-    assert int(restored["count"]) == 3
-    np.testing.assert_array_equal(np.asarray(restored["mu"]["conv"]["bias"]),
-                                  opt["mu"]["conv"]["bias"])
+        got = np.asarray(state["variables"]["params"]["conv"][leaf])
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, _variables(1.5)["params"]["conv"][leaf])
+    assert np.asarray(state["opt_state"]["0"]["count"]).dtype == np.int32
+    assert int(state["opt_state"]["0"]["count"]) == 3 and state["opt_state"]["1"] == {}
+    np.testing.assert_array_equal(np.asarray(state["opt_state"]["0"]["mu"]["conv"]["bias"]),
+                                  opt["0"]["mu"]["conv"]["bias"])
 
 
 def test_auto_resume_equals_the_uninterrupted_run(tmp_path):

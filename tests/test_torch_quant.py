@@ -251,6 +251,32 @@ def test_classifier_int8_labels_equal_jax(params, device_vote):
     assert got_pred.shape == float_pred.shape
 
 
+def test_new_weights_recalibrate_in_the_port_not_in_the_jax_package(params):
+    """A fault of the JAX package: its classifier keeps the int8 ranges of
+    its first weights (``_int8_state``) after ``params`` changes; the
+    port's drops them and calibrates the new weights afresh."""
+    images = np.stack([_synthetic_page(96, 80, s) for s in range(2)])
+    binaries = (images < 128).astype(np.uint8)
+    scaled = {layer: {k: v * 3.0 for k, v in leaves.items()} for layer, leaves in params.items()}
+    jax_net = JaxClassifier(n_classes=3, int8=True)
+    net = PixelClassifier(3, int8=True, device="cpu")
+    first = {}
+    for classifier in (jax_net, net):
+        classifier.params = params
+        classifier.predict_batch_masks(images, binaries, PALETTE)
+        if classifier is jax_net:
+            first = {n: float(a["in"]) for n, a in jax_net._int8_state[1].items()}
+        classifier.params = scaled
+        classifier.predict_batch_masks(images, binaries, PALETTE)
+    fresh_jax = JaxClassifier(n_classes=3, int8=True)
+    fresh_jax.params = scaled
+    fresh_jax.predict_batch_masks(images, binaries, PALETTE)
+    for name, want in fresh_jax._int8_state[1].items():
+        assert float(jax_net._int8_state[1][name]["in"]) == first[name]  # the first weights' range
+        assert abs(float(net.amax[name]["in"]) - float(want["in"])) <= 1e-5 * float(want["in"])
+    assert any(first[n] != float(w["in"]) for n, w in fresh_jax._int8_state[1].items())
+
+
 @pytest.mark.parametrize("cc_vote, download", [("host", "packed"), ("pallas", "pred")])
 def test_throughput_int8_labels_equal_jax(params, cc_vote, download):
     h, w = 192, 160

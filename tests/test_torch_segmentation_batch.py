@@ -128,14 +128,33 @@ def test_the_device_backend_raises_without_a_card(tmp_path):
         pytest.skip("a card is present: the default device works")
     from page_segmentation_tpu_torch.cli.main import main as cli
 
-    for text_contours in (False, True):
-        with pytest.raises(RuntimeError, match="cuda"):
-            PageSegmenter(ColorMap(SEG_MAP), 300, text_contours, str(tmp_path), backend="device")
+    with pytest.raises(RuntimeError, match="cuda"):
+        PageSegmenter(ColorMap(SEG_MAP), 300, True, str(tmp_path), backend="device")
+    # without text contours the device runs nothing, as in the JAX package
+    assert PageSegmenter(ColorMap(SEG_MAP), 300, False, str(tmp_path),
+                         backend="device")._device is None
     with pytest.raises(RuntimeError, match="cuda"):
         cli(["page-segmentation", "--prediction", "p.png", "--output_dir", str(tmp_path),
              "--char_height", "9", "--text_contours", "--morph_backend", "device"])
     with pytest.raises(ValueError, match="backend"):
         PageSegmenter(ColorMap(SEG_MAP), 300, True, str(tmp_path), backend="tpu")
+
+
+def test_device_backend_without_text_contours_runs_without_a_card(predictions, tmp_path):
+    # the JAX PageSegmenter touches no device unless the text-contours chain
+    # runs; neither does the port's, so this command line runs on any machine
+    from page_segmentation_tpu.cli.main import main as jax_cli
+    from page_segmentation_tpu_torch.cli.main import main as cli
+
+    ColorMap(SEG_MAP).save(str(tmp_path / "map.json"))
+    common = ["--prediction"] + predictions["indexed"] + ["--char_height", "14",
+              "--color_map", str(tmp_path / "map.json"), "--morph_backend", "device"]
+    for tag, main in (("port", cli), ("jax", jax_cli)):
+        assert main(["page-segmentation", "--output_dir", str(tmp_path / f"{tag}_o"),
+                     "--xml_output_dir", str(tmp_path / f"{tag}_x")] + common) == 0
+    _assert_same_outputs(str(tmp_path / "port_o"), str(tmp_path / "jax_o"),
+                         str(tmp_path / "port_x"), str(tmp_path / "jax_x"),
+                         [f"p{i}" for i in range(len(SHAPES))])
 
 
 def test_renders_in_other_formats_and_empty_runs(predictions, tmp_path):
