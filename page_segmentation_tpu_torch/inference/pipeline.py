@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.pad import round_up
+from ..train.profiling import count, span
 
 
 def nearest_index_array(out_dim: int, in_dim: int) -> np.ndarray:
@@ -141,7 +142,8 @@ def make_fused_predict(
 
     def core(net, pages_u8, palette, ink_packed=None):
         img = normalize(pages_u8)
-        logits = net.forward_nchw(img.to(compute_dtype))
+        with span("ps.forward"):
+            logits = net.forward_nchw(img.to(compute_dtype))
         pred = logits.argmax(dim=1)
         if cc_vote:
             from ..ops.cuda_cc import cc_vote_batch
@@ -403,7 +405,9 @@ class ThroughputPredictor:
         """Decimate pages (box mean) + nearest-gather the ink mask."""
         from .. import native
 
-        dec = native.decimate_u8(pages, self.host_decimate)
+        with span("ps.decimate"):
+            dec = native.decimate_u8(pages, self.host_decimate)
+            count("ps.decimate_bytes", pages.nbytes)
         if self.packed_binary:
             return self._put(dec), self._gather_ink_bits(binaries)
         ink = native.gather_ink(binaries, self.row_idx, self.col_idx)
@@ -483,34 +487,41 @@ class ThroughputPredictor:
         padded[:, :h, :w] = ink
         return np.packbits(padded, axis=-1)
 
-    def _dispatch(self, prepared) -> torch.Tensor:
-        dec, _, ink_staged = prepared
-        take = self._take
-        pages = take(dec)
-        if self._calibrate_fn is not None and self._amax is None:
-            whole = (torch.cat([p.to(self.device) for p in pages]) if isinstance(pages, list)
-                     else pages)
-            self.amax = self._calibrate_fn(whole)
-        if ink_staged is not None:
-            return self.fused(pages, self.palette_dev, take(ink_staged))
-        return self.fused(pages, self.palette_dev)
+    def _dispatch(self, prepared, unit: Optional[int] = None) -> torch.Tensor:
+        """Launch one prepared batch; ``unit`` labels its spans."""
+        with span("ps.launch", unit):
+            dec, _, ink_staged = prepared
+            take = self._take
+            pages = take(dec)
+            if self._calibrate_fn is not None and self._amax is None:
+                whole = (torch.cat([p.to(self.device) for p in pages])
+                         if isinstance(pages, list) else pages)
+                self.amax = self._calibrate_fn(whole)
+            if ink_staged is not None:
+                return self.fused(pages, self.palette_dev, take(ink_staged))
+            return self.fused(pages, self.palette_dev)
 
-    def _download_finish(self, download, ink: np.ndarray):
+    def _download_finish(self, download, ink: np.ndarray, unit: Optional[int] = None):
         """Wait for the copy's event, then build the host trio; runs on the
-        downloader thread in run()."""
-        return self._finish(self._wait_download(download), ink)
+        downloader thread in run().  ``unit`` labels its spans."""
+        with span("ps.finish", unit):
+            with span("ps.wait_download"):
+                downloaded = self._wait_download(download)
+            with span("ps.trio"):
+                return self._finish(downloaded, ink)
 
     # -------------------------------------------------------------- pipeline
     # run() pipelines a whole corpus internally; a serving engine pipelines
     # across requests instead, with these staged calls.
-    def prep_batch(self, pages: np.ndarray, binaries: np.ndarray):
+    def prep_batch(self, pages: np.ndarray, binaries: np.ndarray, unit: Optional[int] = None):
         """Stage 1, host + upload: decimate, start the upload, gather ink.
         Returns an opaque prepared unit for execute_batch; safe to call from
-        another thread than execute_batch."""
-        vote = self.cc_vote in ("xla", "pallas")
-        dec, ink = self._prep(pages, binaries)
-        ink_staged = self._put(self._pack_ink(ink)) if vote else None
-        return dec, ink, ink_staged
+        another thread than execute_batch.  ``unit`` labels its spans."""
+        with span("ps.prep", unit):
+            vote = self.cc_vote in ("xla", "pallas")
+            dec, ink = self._prep(pages, binaries)
+            ink_staged = self._put(self._pack_ink(ink)) if vote else None
+            return dec, ink, ink_staged
 
     def prep_pages(self, pages, binaries, n_pad: int):
         """prep_batch for a LIST of per-request full-res pages, padded to
@@ -550,28 +561,33 @@ class ThroughputPredictor:
         checks that pattern on the card with this class's own transfers
         (side-stream pinned uploads racing an event-fenced download of the
         CUDA labeler's vote) and finds no corrupt download, so every vote
-        placement keeps the overlap here (the outputs are the same)."""
+        placement keeps the overlap here (the outputs are the same).
+
+        With the span recorder on (``train/profiling.py``), each stage's
+        spans carry the batch index as their unit."""
         self._ring_len = max(4, max(depth, 1) + 2)
         n = pages.shape[0]
         starts = list(range(0, n, batch_size))
         if not starts:
             return
 
-        def prep(start):
+        def prep(index):
+            start = starts[index]
             stop = min(start + batch_size, n)
-            return self.prep_batch(pages[start:stop], binaries[start:stop])
+            return self.prep_batch(pages[start:stop], binaries[start:stop], index)
 
         with ThreadPoolExecutor(max_workers=1) as prefetch, \
                 ThreadPoolExecutor(max_workers=1) as downloader:
-            next_prep = prefetch.submit(prep, starts[0])
+            next_prep = prefetch.submit(prep, 0)
             pending = deque()  # ordered futures of finished batches
             for index in range(len(starts)):
-                prepared = next_prep.result()
+                with span("ps.wait_prep", index):
+                    prepared = next_prep.result()
                 if index + 1 < len(starts):
-                    next_prep = prefetch.submit(prep, starts[index + 1])
-                download = self._start_download(self._dispatch(prepared))
+                    next_prep = prefetch.submit(prep, index + 1)
+                download = self._start_download(self._dispatch(prepared, index))
                 pending.append(
-                    downloader.submit(self._download_finish, download, prepared[1])
+                    downloader.submit(self._download_finish, download, prepared[1], index)
                 )
                 while len(pending) > max(depth, 1):
                     yield pending.popleft().result()

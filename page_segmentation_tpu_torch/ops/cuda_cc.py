@@ -37,6 +37,7 @@ import torch
 
 from .._kernels import Entry, launch
 from ..device import on_card, resolve_device
+from ..train.profiling import span
 
 # kernel launches of csrc/cc_label.cu made by this process
 launches = 0
@@ -212,11 +213,13 @@ def _vote_from_labels(pred, ink, labels, n_classes: int):
 def cc_vote_batch(pred, binary, n_classes: int, device="cuda"):
     """Batched cc-majority vote: (N, H, W) class map + ink -> voted class
     map, labels by the kernel on the card."""
-    dev = resolve_device(device)
-    pred = torch.as_tensor(pred, device=dev)
-    ink = _as_ink(binary, dev, 3)
-    labels, _ = _labels(ink, _MAX_CYCLES)
-    return _vote_from_labels(pred, ink if ink.dtype == torch.bool else ink != 0, labels, n_classes)
+    with span("ps.vote"):
+        dev = resolve_device(device)
+        pred = torch.as_tensor(pred, device=dev)
+        ink = _as_ink(binary, dev, 3)
+        labels, _ = _labels(ink, _MAX_CYCLES)
+        return _vote_from_labels(pred, ink if ink.dtype == torch.bool else ink != 0, labels,
+                                 n_classes)
 
 
 def cc_vote_batch_xla(pred, binary, n_classes: int, device="cuda"):
