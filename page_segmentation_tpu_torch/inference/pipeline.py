@@ -406,8 +406,9 @@ class ThroughputPredictor:
         from .. import native
 
         with span("ps.decimate"):
-            dec = native.decimate_u8(pages, self.host_decimate)
+            dec, threads = native.decimate_u8(pages, self.host_decimate, with_threads=True)
             count("ps.decimate_bytes", pages.nbytes)
+            count("ps.decimate_threads", threads)
         if self.packed_binary:
             return self._put(dec), self._gather_ink_bits(binaries)
         ink = native.gather_ink(binaries, self.row_idx, self.col_idx)

@@ -20,7 +20,8 @@ from .._kernels import LibrarySpec, _gxx, load_library
 NATIVE_SPEC = LibrarySpec(
     "ps_native", _gxx,
     # -ffp-contract=off: the rasterizer's float crossings must round as PIL's
-    ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-shared", "-ffp-contract=off"),
+    ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-shared", "-ffp-contract=off",
+     "-pthread"),
     ("native/ps_native.cpp",),
 )
 
@@ -34,7 +35,7 @@ _size = ctypes.c_size_t
 _SIGNATURES = {
     "ps_cc_with_stats": (_int, [_u8p, _int, _int, _int, _i32p, _i32p, _f64p, _int]),
     "ps_cc_vote": (_int, [_u8p, _int, _int, _int, _i32p]),
-    "ps_decimate_u8": (None, [_u8p, _int, _int, _int, _int, _u8p]),
+    "ps_decimate_u8": (_int, [_u8p, _int, _int, _int, _int, _u8p]),
     "ps_gather_ink": (None, [_u8p, _int, _int, _int, _i32p, _int, _i32p, _int, _u8p]),
     "ps_finish": (None, [_u8p, _u8p, _u8p] + [_int] * 6 + [_u8p] * 3),
     "ps_finish_packed": (None, [_u8p, _u8p, _u8p] + [_int] * 6 + [_u8p] * 3),
@@ -166,15 +167,17 @@ def cc_vote(binary: np.ndarray, pred: np.ndarray, n_classes: int) -> np.ndarray:
     return out
 
 
-def decimate_u8(pages: np.ndarray, factor: int) -> np.ndarray:
-    """Batch box-mean decimation of (N, H, W) uint8 pages."""
+def decimate_u8(pages: np.ndarray, factor: int, with_threads: bool = False):
+    """Batch box-mean decimation of (N, H, W) uint8 pages; with
+    ``with_threads``, (decimated pages, threads the call used).  The call
+    splits a large batch over the process's CPUs (``ps_decimate_u8``)."""
     pages = np.ascontiguousarray(pages, np.uint8)
     if pages.ndim != 3 or factor < 1:
         raise ValueError(f"pages must be (N, H, W) and factor >= 1, got {pages.shape}, {factor}")
     n, h, w = pages.shape
     out = np.empty((n, h // factor, w // factor), np.uint8)
-    get_lib().ps_decimate_u8(pages, n, h, w, int(factor), out)
-    return out
+    threads = get_lib().ps_decimate_u8(pages, n, h, w, int(factor), out)
+    return (out, threads) if with_threads else out
 
 
 def gather_ink(binaries: np.ndarray, row_idx: np.ndarray, col_idx: np.ndarray) -> np.ndarray:

@@ -25,8 +25,15 @@
 #include <cstring>
 #include <stdexcept>
 #include <string>
+#include <system_error>
+#include <thread>
 #include <utility>
 #include <vector>
+
+#include <sched.h>
+#if defined(__SSE2__)
+#include <immintrin.h>
+#endif
 
 namespace {
 
@@ -152,6 +159,102 @@ void finish_pages(ClsAt cls_at, const uint8_t* cls_rows, const uint8_t* ink,
     }
 }
 
+// The decimate takes one thread per this many input bytes: on the card's
+// host a thread costs ~0.1 ms to start and join, which less work than this
+// does not pay back (PERF.md: the split size on cold pages).
+constexpr size_t kDecimateBytesPerThread = size_t(4) << 20;
+// At most this many threads: the knee of the decimate's GB/s against its
+// threads on the card's host (PERF.md).
+constexpr int kDecimateMaxThreads = 5;
+
+// CPUs in the calling thread's affinity mask (so `taskset` holds).
+int process_cpus() {
+    cpu_set_t set;
+    CPU_ZERO(&set);
+    if (sched_getaffinity(0, sizeof(set), &set) != 0) {
+        const unsigned hc = std::thread::hardware_concurrency();
+        return hc ? static_cast<int>(hc) : 1;
+    }
+    return CPU_COUNT(&set);
+}
+
+// Threads for a decimate of `bytes` input bytes into `rows` output rows:
+// one per kDecimateBytesPerThread, at most the process's CPUs less two (a
+// core each for the predictor's dispatch and download threads), capped.
+int decimate_threads(size_t bytes, int64_t rows) {
+    const int64_t by_size = static_cast<int64_t>(bytes / kDecimateBytesPerThread);
+    const int64_t t = std::min<int64_t>(
+        {by_size, rows, process_cpus() - 2, kDecimateMaxThreads});
+    return static_cast<int>(std::max<int64_t>(t, 1));
+}
+
+#if defined(__SSE2__)
+// Rounded box means of one output row at factor 8, from the 8 input rows
+// that start at `rows` (stride w): a SAD against zero sums a cell's 8 bytes
+// of a row in one instruction, 4 cells at a time with AVX2, then one.
+void decimate_row_f8(const uint8_t* rows, size_t w, int ow, uint8_t* orow) {
+    int ox = 0;
+#if defined(__AVX2__)
+    const __m256i zero256 = _mm256_setzero_si256();
+    for (; ox + 4 <= ow; ox += 4) {
+        const uint8_t* p = rows + static_cast<size_t>(ox) * 8;
+        __m256i acc = zero256;
+        for (int fy = 0; fy < 8; ++fy) {
+            const __m256i v = _mm256_loadu_si256(
+                reinterpret_cast<const __m256i*>(p + fy * w));
+            acc = _mm256_add_epi64(acc, _mm256_sad_epu8(v, zero256));
+        }
+        alignas(32) uint64_t s[4];
+        _mm256_store_si256(reinterpret_cast<__m256i*>(s), acc);
+        for (int k = 0; k < 4; ++k) orow[ox + k] = static_cast<uint8_t>((s[k] + 32) / 64);
+    }
+#endif
+    const __m128i zero128 = _mm_setzero_si128();
+    for (; ox < ow; ++ox) {
+        const uint8_t* p = rows + static_cast<size_t>(ox) * 8;
+        __m128i acc = zero128;
+        for (int fy = 0; fy < 8; ++fy) {
+            const __m128i v = _mm_loadl_epi64(reinterpret_cast<const __m128i*>(p + fy * w));
+            acc = _mm_add_epi32(acc, _mm_sad_epu8(v, zero128));
+        }
+        orow[ox] = static_cast<uint8_t>((_mm_cvtsi128_si32(acc) + 32) / 64);
+    }
+}
+#endif
+
+// Output rows [begin, end) of the whole batch (row r: page r / oh, row
+// r % oh of it) of ps_decimate_u8.
+void decimate_rows(const uint8_t* src, int h, int w, int factor, uint8_t* dst,
+                   int64_t begin, int64_t end) {
+    const int oh = h / factor, ow = w / factor;
+    const uint32_t area = static_cast<uint32_t>(factor) * factor;
+    const uint32_t half = area / 2;
+    std::vector<uint16_t> vsum(w);
+    for (int64_t r = begin; r < end; ++r) {
+        const int64_t page = r / oh, oy = r % oh;
+        const uint8_t* first_row =
+            src + (page * h + oy * factor) * static_cast<int64_t>(w);
+        uint8_t* orow = dst + r * ow;
+#if defined(__SSE2__)
+        if (factor == 8) {
+            decimate_row_f8(first_row, w, ow, orow);
+            continue;
+        }
+#endif
+        for (int x = 0; x < w; ++x) vsum[x] = first_row[x];
+        for (int fy = 1; fy < factor; ++fy) {
+            const uint8_t* row = first_row + static_cast<size_t>(fy) * w;
+            for (int x = 0; x < w; ++x) vsum[x] += row[x];
+        }
+        const uint16_t* cell = vsum.data();
+        for (int ox = 0; ox < ow; ++ox, cell += factor) {
+            uint32_t s = 0;
+            for (int fx = 0; fx < factor; ++fx) s += cell[fx];
+            orow[ox] = static_cast<uint8_t>((s + half) / area);
+        }
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -260,32 +363,27 @@ int ps_cc_vote(const uint8_t* binary, int h, int w, int n_classes,
 
 // Box-mean decimation of a batch of uint8 pages by an integer factor
 // (rounded mean, PIL Image.reduce semantics for full boxes; the ragged
-// right/bottom remainder is cropped as the pipeline never reads it).
-void ps_decimate_u8(const uint8_t* src, int n, int h, int w, int factor,
-                    uint8_t* dst) {
-    const int oh = h / factor, ow = w / factor;
-    const uint32_t area = static_cast<uint32_t>(factor) * factor;
-    const uint32_t half = area / 2;
-    std::vector<uint16_t> vsum(w);
-    for (int page = 0; page < n; ++page) {
-        const uint8_t* sp = src + static_cast<size_t>(page) * h * w;
-        uint8_t* dp = dst + static_cast<size_t>(page) * oh * ow;
-        for (int oy = 0; oy < oh; ++oy) {
-            const uint8_t* first_row = sp + static_cast<size_t>(oy) * factor * w;
-            for (int x = 0; x < w; ++x) vsum[x] = first_row[x];
-            for (int fy = 1; fy < factor; ++fy) {
-                const uint8_t* row = first_row + static_cast<size_t>(fy) * w;
-                for (int x = 0; x < w; ++x) vsum[x] += row[x];
-            }
-            uint8_t* orow = dp + static_cast<size_t>(oy) * ow;
-            const uint16_t* cell = vsum.data();
-            for (int ox = 0; ox < ow; ++ox, cell += factor) {
-                uint32_t s = 0;
-                for (int fx = 0; fx < factor; ++fx) s += cell[fx];
-                orow[ox] = static_cast<uint8_t>((s + half) / area);
-            }
+// right/bottom remainder is cropped as the pipeline never reads it).  The
+// batch's output rows are split in blocks over decimate_threads() threads,
+// each with its own column sums; returns the number of threads used.
+int ps_decimate_u8(const uint8_t* src, int n, int h, int w, int factor,
+                   uint8_t* dst) {
+    const int64_t rows = static_cast<int64_t>(n) * (h / factor);
+    const int want = decimate_threads(static_cast<size_t>(n) * h * w, rows);
+    std::vector<std::thread> workers;
+    int64_t done = 0;  // rows handed out
+    for (int i = 1; i < want; ++i) {
+        const int64_t begin = rows * (i - 1) / want, end = rows * i / want;
+        try {
+            workers.emplace_back(decimate_rows, src, h, w, factor, dst, begin, end);
+        } catch (const std::system_error&) {
+            break;  // no more threads: the calling thread takes the rest
         }
+        done = end;
     }
+    decimate_rows(src, h, w, factor, dst, done, rows);
+    for (auto& t : workers) t.join();
+    return static_cast<int>(workers.size()) + 1;
 }
 
 // Nearest-neighbour gather of the ink mask (binary < 128) at precomputed

@@ -15,7 +15,8 @@ The program's own spans and counters (port-only).  The corpus path opens
 ``ps.*`` spans around its stages (``inference/pipeline.py``: ``ps.prep``,
 ``ps.decimate``, ``ps.wait_prep``, ``ps.launch``, ``ps.forward``,
 ``ps.finish``, ``ps.wait_download``, ``ps.trio``; ``ops/cuda_cc.py``:
-``ps.vote``) and counts ``ps.decimate_bytes``.  The recorder is off by
+``ps.vote``) and counts ``ps.decimate_bytes`` and ``ps.decimate_threads``
+(the threads each decimate used).  The recorder is off by
 default, and then a span is one flag check.  ``trace()`` turns it on for
 its block, so the Chrome trace carries the ``ps.*`` names beside the
 kernels they launched.  A process with no profiler reads the recorder

@@ -208,7 +208,31 @@ def test_run_spans_one_of_each_per_batch_and_the_same_trios(predictor, pages):
         assert len({threads["ps.prep"], threads["ps.launch"], threads["ps.finish"]}) == 3
         assert mine["ps.prep"].end <= mine["ps.wait_prep"].end <= mine["ps.launch"].start
         assert mine["ps.launch"].end <= mine["ps.finish"].start
-    assert counters() == {"ps.decimate_bytes": pages[0].size}  # pages x H x W, one byte each
+    # pages x H x W, one byte each; one thread a call on pages this small
+    assert counters() == {"ps.decimate_bytes": pages[0].size, "ps.decimate_threads": 2}
+
+
+def test_decimate_threads_counted_once_per_prep_batch(predictor, pages, monkeypatch):
+    """prep_batch adds the threads its decimate used to ``ps.decimate_threads``
+    once a call with the recorder on, and nothing with it off."""
+    from page_segmentation_tpu_torch import native
+
+    real = native.decimate_u8
+
+    def five_threads(p, factor, with_threads=False):
+        out = real(p, factor)
+        return (out, 5) if with_threads else out
+
+    monkeypatch.setattr(native, "decimate_u8", five_threads)
+    profiling.enable_spans()
+    for i in range(3):
+        predictor.prep_batch(pages[0][i % 2:][:1], pages[1][i % 2:][:1])
+    assert counters()["ps.decimate_threads"] == 15
+    assert len([s for s in spans() if s.name == "ps.decimate"]) == 3
+    profiling.enable_spans()
+    profiling.disable_spans()
+    predictor.prep_batch(pages[0][:1], pages[1][:1])
+    assert counters() == {}
 
 
 def test_execute_batch_spans_carry_no_unit(predictor, pages):
