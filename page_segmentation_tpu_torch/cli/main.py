@@ -193,35 +193,14 @@ def _predict_pipeline(args, color_map, entries) -> int:
 
 
 # --------------------------------------------------------------------- train
-def cmd_train(args) -> int:
-    import math
-
-    from ..data.loader import DatasetLoader
+def train_settings(args, n_classes: int, n_epoch: int, train_data, validation, evaluation):
+    """The ``TrainSettings`` that ``train`` runs with: its parsed ``args``
+    mapped field by field, and the loaded datasets."""
     from ..models.registry import Architecture, Optimizers
     from ..train.metrics import Loss, Monitor
-    from ..train.trainer import AugmentationSettings, Trainer, TrainSettings
+    from ..train.trainer import AugmentationSettings, TrainSettings
 
-    if args.distributed:
-        from ..parallel import distributed
-
-        distributed.initialize(device=args.device)
-    color_map = _load_color_map(args.color_map)
-    loader = DatasetLoader(args.target_line_height, color_map, max_width=args.max_width,
-                           resize_backend=args.resize_backend)
-    lazy = args.streaming
-    train_data = loader.load_data_from_json(_resolve_split_files(args, "train"), "train", lazy=lazy)
-    test_files = _resolve_split_files(args, "test")
-    validation = loader.load_data_from_json(test_files, "test", lazy=lazy) if test_files else None
-    eval_files = _resolve_split_files(args, "eval")
-    evaluation = loader.load_data_from_json(eval_files, "eval", lazy=lazy) if eval_files else None
-
-    n_classes = args.n_classes or color_map.n_classes
-    if args.n_iter:
-        n_epoch = max(1, math.ceil(args.n_iter / max(len(train_data), 1)))
-    else:
-        n_epoch = args.n_epoch
-
-    settings = TrainSettings(
+    return TrainSettings(
         n_epoch=n_epoch,
         n_classes=n_classes,
         l_rate=args.l_rate,
@@ -265,6 +244,35 @@ def cmd_train(args) -> int:
         distributed=args.distributed,
         device=args.device,
     )
+
+
+def cmd_train(args) -> int:
+    import math
+
+    from ..data.loader import DatasetLoader
+    from ..train.trainer import Trainer
+
+    if args.distributed:
+        from ..parallel import distributed
+
+        distributed.initialize(device=args.device)
+    color_map = _load_color_map(args.color_map)
+    loader = DatasetLoader(args.target_line_height, color_map, max_width=args.max_width,
+                           resize_backend=args.resize_backend)
+    lazy = args.streaming
+    train_data = loader.load_data_from_json(_resolve_split_files(args, "train"), "train", lazy=lazy)
+    test_files = _resolve_split_files(args, "test")
+    validation = loader.load_data_from_json(test_files, "test", lazy=lazy) if test_files else None
+    eval_files = _resolve_split_files(args, "eval")
+    evaluation = loader.load_data_from_json(eval_files, "eval", lazy=lazy) if eval_files else None
+
+    n_classes = args.n_classes or color_map.n_classes
+    if args.n_iter:
+        n_epoch = max(1, math.ceil(args.n_iter / max(len(train_data), 1)))
+    else:
+        n_epoch = args.n_epoch
+
+    settings = train_settings(args, n_classes, n_epoch, train_data, validation, evaluation)
     trainer = Trainer(settings)
     trainer.train()
     trainer.eval()

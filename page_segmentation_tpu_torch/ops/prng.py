@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from .._kernels import Entry, launch
+from ..train.profiling import count, span
 
 Key = Tuple[np.uint32, np.uint32]
 
@@ -265,6 +266,8 @@ def uniform(key: Key, shape, minval: float = 0.0, maxval: float = 1.0, device="c
 
 
 def _dropout_any(x: torch.Tensor, key: Key, rate: float) -> torch.Tensor:
+    # one pass reads x and writes y, of x's size each: the forward's and the backward's
+    count("ps.dropout_bytes", 2 * x.numel() * x.element_size())
     return _dropout_cuda(x, key, rate) if x.is_cuda else dropout_plain(x, key, rate)
 
 
@@ -285,5 +288,8 @@ class JaxDropout(torch.autograd.Function):
 def dropout(x: torch.Tensor, rate: float, key: Key) -> torch.Tensor:
     """flax ``nn.Dropout(rate)`` on the NCHW ``x`` under the dropout key
     ``key`` (differentiable): the kernel on the card, the plain version on
-    the CPU."""
-    return JaxDropout.apply(x, (np.uint32(key[0]), np.uint32(key[1])), float(rate))
+    the CPU.  With the span recorder on, the forward runs under
+    ``ps.dropout`` and each pass, forward or backward, adds the bytes it
+    reads and writes to ``ps.dropout_bytes``."""
+    with span("ps.dropout"):
+        return JaxDropout.apply(x, (np.uint32(key[0]), np.uint32(key[1])), float(rate))

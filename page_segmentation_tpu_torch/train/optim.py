@@ -58,9 +58,11 @@ def _safe_increment(count: torch.Tensor) -> torch.Tensor:
 
 
 def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
-    """1 - decay ** count in float32."""
-    return 1 - torch.pow(torch.tensor(decay, dtype=torch.float32, device=count.device),
-                         count.to(torch.float32))
+    """1 - decay ** count in float32.  The base is filled on the device:
+    ``torch.tensor(decay, device=...)`` copies from the host and waits for
+    the device to finish what was launched before it, once a step."""
+    base = torch.full((), decay, dtype=torch.float32, device=count.device)
+    return 1 - torch.pow(base, count.to(torch.float32))
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
@@ -94,14 +96,19 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
 
 def per_leaf_norm_clip(max_norm: float) -> Callable[[Tree], Tree]:
     """Keras ``clipnorm``: each gradient tensor scaled down to the L2 norm
-    ``max_norm`` where its own norm exceeds it."""
+    ``max_norm`` where its own norm exceeds it.  Each norm is its own
+    tensor's ``sqrt(sum(x * x))``; the elementwise steps run over all the
+    tensors at once."""
 
-    def clip_leaf(x):
-        norm = torch.sqrt((x * x).sum())
-        scale = torch.where(norm > max_norm, max_norm / (norm + 1e-12), 1.0)
-        return x * scale.to(x.dtype)
+    def clip(grads: Tree) -> Tree:
+        if not grads:
+            return {}
+        keys, g = list(grads), list(grads.values())
+        norms = torch.stack(torch._foreach_sqrt([s.sum() for s in torch._foreach_mul(g, g)]))
+        scales = torch.where(norms > max_norm, max_norm / (norms + 1e-12), 1.0)
+        return dict(zip(keys, torch._foreach_mul(g, [s.to(x.dtype) for s, x in zip(scales, g)])))
 
-    return lambda grads: {k: clip_leaf(v) for k, v in grads.items()}
+    return clip
 
 
 def map_tree(fn, *trees):
@@ -177,22 +184,33 @@ class Optimizer:
         if kind == "sgd":
             return g, {}, None
         if kind in ("adam", "nadam", "adamax"):
+            # over all the tensors at once, each step optax's float32 operation
             b1, b2 = 0.9, 0.999
             count = _safe_increment(state["base_count"])
-            mu = {k: (1 - b1) * g[k] + b1 * b["mu"][k] for k in g}
+            keys = list(g)
+            gs, mus, nus = ([t[k] for k in keys] for t in (g, b["mu"], b["nu"]))
+            mu = torch._foreach_add(torch._foreach_mul(gs, 1 - b1), torch._foreach_mul(mus, b1))
+            c1 = _bias_correction(b1, count)
             if kind == "adamax":
-                nu = {k: torch.maximum(g[k].abs() + 1e-8, b2 * b["nu"][k]) for k in g}
-                c1 = _bias_correction(b1, count)
-                return {k: (mu[k] / c1) / nu[k] for k in g}, {"mu": mu, "nu": nu}, count
-            nu = {k: (1 - b2) * (g[k] * g[k]) + b2 * b["nu"][k] for k in g}
-            c1, c2 = _bias_correction(b1, count), _bias_correction(b2, count)
-            if kind == "nadam":
-                c1_next = _bias_correction(b1, _safe_increment(count))
-                mu_hat = {k: b1 * (mu[k] / c1_next) + (1 - b1) * (g[k] / c1) for k in g}
+                nu = torch._foreach_maximum(torch._foreach_add(torch._foreach_abs(gs), 1e-8),
+                                            torch._foreach_mul(nus, b2))
+                out = torch._foreach_div(torch._foreach_div(mu, c1), nu)
             else:
-                mu_hat = {k: mu[k] / c1 for k in g}
-            out = {k: mu_hat[k] / (torch.sqrt(nu[k] / c2 + 0.0) + 1e-8) for k in g}
-            return out, {"mu": mu, "nu": nu}, count
+                nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(gs, gs), 1 - b2),
+                                        torch._foreach_mul(nus, b2))
+                if kind == "nadam":
+                    c1_next = _bias_correction(b1, _safe_increment(count))
+                    mu_hat = torch._foreach_add(
+                        torch._foreach_mul(torch._foreach_div(mu, c1_next), b1),
+                        torch._foreach_mul(torch._foreach_div(gs, c1), 1 - b1))
+                else:
+                    mu_hat = torch._foreach_div(mu, c1)
+                c2 = _bias_correction(b2, count)
+                denom = torch._foreach_add(
+                    torch._foreach_sqrt(torch._foreach_add(torch._foreach_div(nu, c2), 0.0)), 1e-8)
+                out = torch._foreach_div(mu_hat, denom)
+            return (dict(zip(keys, out)), {"mu": dict(zip(keys, mu)), "nu": dict(zip(keys, nu))},
+                    count)
         if kind == "adadelta":
             rho, eps = 0.9, 1e-6
             g = {k: g[k] + 0.0 * params[k] for k in g}  # add_decayed_weights(0.0)
@@ -225,7 +243,7 @@ class Optimizer:
         if count is not None:
             new["base_count"] = count
         step = -1 * new["learning_rate"]
-        return {k: step * v for k, v in direction.items()}, new
+        return dict(zip(direction, torch._foreach_mul(list(direction.values()), step))), new
 
     def update(self, grads: Tree, state: dict, params: Tree):
         """(updates, new state) for the gradients ``grads`` of ``params``."""

@@ -16,7 +16,11 @@ The program's own spans and counters (port-only).  The corpus path opens
 ``ps.decimate``, ``ps.wait_prep``, ``ps.launch``, ``ps.forward``,
 ``ps.finish``, ``ps.wait_download``, ``ps.trio``; ``ops/cuda_cc.py``:
 ``ps.vote``) and counts ``ps.decimate_bytes`` and ``ps.decimate_threads``
-(the threads each decimate used).  The recorder is off by
+(the threads each decimate used).  The train path opens ``ps.step`` (unit:
+the global step), ``ps.batch_wait``, ``ps.fwd_bwd`` and ``ps.optim``
+(``train/trainer.py``, ``train/steps.py``) and ``ps.dropout``
+(``ops/prng.py``), and counts ``ps.dropout_bytes``, the bytes each dropout
+pass reads and writes, forward and backward.  The recorder is off by
 default, and then a span is one flag check.  ``trace()`` turns it on for
 its block, so the Chrome trace carries the ``ps.*`` names beside the
 kernels they launched.  A process with no profiler reads the recorder

@@ -32,7 +32,9 @@ running statistics each BatchNorm computed (``models/layers.py``), and
 drives the dropout of the models that have it, drawing JAX's masks.  None
 draws no dropout.  The eval step runs in eval mode on the running statistics.
 Parameters that the loss does not reach (EfficientNet's dead tail) get zero
-gradients, as ``jax.grad`` gives them.
+gradients, as ``jax.grad`` gives them.  With the span recorder on
+(``train/profiling.py``) forward and backward run under ``ps.fwd_bwd`` and
+the optimizer's update with the new parameters under ``ps.optim``.
 
 With a ``mesh`` the batch is split over its ``data`` axis (a dict of lists,
 one piece per device, from ``parallel/mesh.py`` ``shard_batch`` or
@@ -66,6 +68,14 @@ from ..models.layers import BatchNorm
 from ..ops.prng import fold_in
 from . import metrics as M
 from .optim import map_tree
+from .profiling import span
+
+
+def add_updates(params, updates):
+    """``params + updates``, every tensor in one call."""
+    keys = list(params)
+    return dict(zip(keys, torch._foreach_add([params[k].detach() for k in keys],
+                                             [updates[k] for k in keys])))
 
 
 def make_step_fns(
@@ -162,16 +172,17 @@ def make_step_fns(
         args = (leaves, model_state, batch["image"], dropout_rng)
         module.train()
         try:
-            if remat:
-                logits = torch.utils.checkpoint.checkpoint(forward, *args, use_reentrant=False)
-            else:
-                logits = forward(*args)
-            weights = batch.get("loss_weights", batch.get("weights"))
-            loss_value = loss_fn(batch["mask"], logits, weights=weights)
-            if scale is not None:
-                loss_value = loss_value * scale
-            grads = torch.autograd.grad(loss_value, list(leaves.values()), allow_unused=True,
-                                        materialize_grads=True)
+            with span("ps.fwd_bwd"):
+                if remat:
+                    logits = torch.utils.checkpoint.checkpoint(forward, *args, use_reentrant=False)
+                else:
+                    logits = forward(*args)
+                weights = batch.get("loss_weights", batch.get("weights"))
+                loss_value = loss_fn(batch["mask"], logits, weights=weights)
+                if scale is not None:
+                    loss_value = loss_value * scale
+                grads = torch.autograd.grad(loss_value, list(leaves.values()), allow_unused=True,
+                                            materialize_grads=True)
         finally:
             module.eval()
         return loss_value.detach(), logits.detach(), dict(zip(leaves, grads)), collect_stats()
@@ -184,8 +195,9 @@ def make_step_fns(
         batch = unpack(batch)
         loss_value, logits, grads, new_state = grads_of(params, model_state, batch, dropout_rng)
         with torch.no_grad():
-            updates, new_opt_state = optimizer.update(grads, opt_state, params)
-            new_params = {k: v.detach() + updates[k] for k, v in params.items()}
+            with span("ps.optim"):
+                updates, new_opt_state = optimizer.update(grads, opt_state, params)
+                new_params = add_updates(params, updates)
             step_metrics = compute_metrics(batch, logits)
             if skip_nonfinite:
                 finite = torch.isfinite(loss_value)
@@ -304,8 +316,9 @@ def make_step_fns(
         step_metrics, _, grads, new_state, finite = mesh_grads(
             params, model_state, batch, dropout_rng)
         with torch.no_grad():
-            updates, new_opt_state = optimizer.update(grads, opt_state, params)
-            new_params = {k: v.detach() + updates[k] for k, v in params.items()}
+            with span("ps.optim"):
+                updates, new_opt_state = optimizer.update(grads, opt_state, params)
+                new_params = add_updates(params, updates)
             if skip_nonfinite:
                 for g in grads.values():
                     finite = finite & torch.isfinite(g).all()

@@ -46,6 +46,13 @@ checkpoints of ``train/checkpoint.py`` ``OrbaxCheckpointer`` under
 ``<output_dir>/<model_name>_orbax``, and ``auto_resume`` continues from its
 newest step: weights, BatchNorm statistics, optimizer state and the loop's
 counters.
+
+Spans (``train/profiling.py``, off by default): ``ps.step`` around each
+step of the loop, with the global step as its unit, and inside it
+``ps.batch_wait`` (the wait for the prefetched batch), ``ps.fwd_bwd`` and
+``ps.optim`` (``train/steps.py``) and ``ps.optim`` again around the copy
+of the new weights into the module.  ``request_stop()`` ends the loop
+between steps without a device sync.
 """
 from __future__ import annotations
 
@@ -69,6 +76,7 @@ from ..ops.prng import fold_in, prng_key, split
 from .callbacks import ModelDiagnoser, ScalarLogger, TrainProgressCallback
 from .checkpoint import save_checkpoint
 from .metrics import Loss, Monitor
+from .profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -200,6 +208,7 @@ class Trainer:
         self.settings = s = settings
         self._class_weight_cache = {}
         self._orbax = None  # the versioned checkpointer, made at its first use
+        self._stop_requested = False
 
         self.mesh = None
         self._multi_host = False
@@ -415,8 +424,8 @@ class Trainer:
         given) into the module."""
         with torch.no_grad():
             if params:
-                for name, p in self.module.named_parameters():
-                    p.copy_(params[name])
+                live = dict(self.module.named_parameters())
+                torch._foreach_copy_(list(live.values()), [params[name] for name in live])
             if state is not None:
                 for name, b in self.module.named_buffers():
                     b.copy_(state[name])
@@ -671,6 +680,15 @@ class Trainer:
         return {k: [p[k] for p in pieces] for k in batch}
 
     # ----------------------------------------------------------------- train
+    def request_stop(self) -> None:
+        """Ask ``train()`` to stop after the step in flight, from any thread
+        or from inside a step.  ``train()`` reads the flag on the host before
+        each step and touches no tensor for it: the steps already launched
+        run on, the epoch ends on them as any epoch does (its means,
+        validation, checkpoint) and ``train()`` returns.  Each ``train()``
+        call starts with the flag down."""
+        self._stop_requested = True
+
     def train(self, callback: Optional[TrainProgressCallback] = None) -> dict:
         s = self.settings
         os.makedirs(s.output_dir, exist_ok=True)
@@ -696,6 +714,7 @@ class Trainer:
         lr = float(s.l_rate)
         history = {"loss": [], "val_loss": [], "lr": []}
         stop = False
+        self._stop_requested = False
         global_step = 0
         start_epoch = 0
         nonfinite_streak = 0
@@ -729,49 +748,56 @@ class Trainer:
             rng = np.random.default_rng([s.seed, epoch])
             dropout_key = fold_in(prng_key(s.seed), epoch)
             epoch_metrics = []
+            pages_done = 0
             batches = self._bucketed_batches(s.train_data, s.batch_size, shuffle_rng=rng)
             with ThreadPoolExecutor(max_workers=1) as prefetch:
                 next_batch = prefetch.submit(build_batch, batches[0])
                 for index in range(len(batches)):
-                    batch = self._take_batch(next_batch.result())
-                    if index + 1 < len(batches):
-                        next_batch = prefetch.submit(build_batch, batches[index + 1])
-                    dropout_key, step_key = split(dropout_key)
-                    if device_augment:
-                        dropout_key, aug_key = split(dropout_key)
-                        batch = self._augment_on_device(batch, aug_key)
-                    new_params, new_state, self.opt_state, step_metrics = self._train_step(
-                        self._live(), self._live_state(), self.opt_state, batch, step_key
-                    )
-                    self._assign(new_params, new_state)
-                    skipped_step = False
-                    if s.skip_nonfinite:
-                        if float(step_metrics["nonfinite"]) > 0:
-                            skipped_step = True
-                            nonfinite_streak += 1
-                            logger.warning(
-                                f"step {global_step}: non-finite loss/grads — update "
-                                f"skipped ({nonfinite_streak}/{s.skip_nonfinite} consecutive)"
-                            )
-                            if nonfinite_streak >= s.skip_nonfinite:
-                                raise RuntimeError(
-                                    f"training diverged: {nonfinite_streak} consecutive "
-                                    "non-finite steps (params kept at the last finite state; "
-                                    "lower l_rate or enable optimizer clipping)"
-                                )
-                        else:
-                            nonfinite_streak = 0
-                    if not skipped_step:
-                        # a skipped step's metrics are NaN: keep them out of
-                        # the epoch means
-                        epoch_metrics.append((len(batches[index]), step_metrics))
-                    if callback and not skipped_step:
-                        callback.update_loss(
-                            global_step,
-                            float(step_metrics["loss"]),
-                            float(step_metrics["accuracy"]),
+                    if self._stop_requested:
+                        break
+                    with span("ps.step", global_step):
+                        with span("ps.batch_wait"):
+                            batch = self._take_batch(next_batch.result())
+                        if index + 1 < len(batches):
+                            next_batch = prefetch.submit(build_batch, batches[index + 1])
+                        dropout_key, step_key = split(dropout_key)
+                        if device_augment:
+                            dropout_key, aug_key = split(dropout_key)
+                            batch = self._augment_on_device(batch, aug_key)
+                        new_params, new_state, self.opt_state, step_metrics = self._train_step(
+                            self._live(), self._live_state(), self.opt_state, batch, step_key
                         )
-                    global_step += 1
+                        with span("ps.optim"):
+                            self._assign(new_params, new_state)
+                        skipped_step = False
+                        if s.skip_nonfinite:
+                            if float(step_metrics["nonfinite"]) > 0:
+                                skipped_step = True
+                                nonfinite_streak += 1
+                                logger.warning(
+                                    f"step {global_step}: non-finite loss/grads — update "
+                                    f"skipped ({nonfinite_streak}/{s.skip_nonfinite} consecutive)"
+                                )
+                                if nonfinite_streak >= s.skip_nonfinite:
+                                    raise RuntimeError(
+                                        f"training diverged: {nonfinite_streak} consecutive "
+                                        "non-finite steps (params kept at the last finite state; "
+                                        "lower l_rate or enable optimizer clipping)"
+                                    )
+                            else:
+                                nonfinite_streak = 0
+                        if not skipped_step:
+                            # a skipped step's metrics are NaN: keep them out of
+                            # the epoch means
+                            epoch_metrics.append((len(batches[index]), step_metrics))
+                        if callback and not skipped_step:
+                            callback.update_loss(
+                                global_step,
+                                float(step_metrics["loss"]),
+                                float(step_metrics["accuracy"]),
+                            )
+                        global_step += 1
+                        pages_done += len(batches[index])
 
             # means weighted by pages: ragged tail batches are smaller
             if not epoch_metrics:
@@ -780,7 +806,7 @@ class Trainer:
                     "(updates skipped; lower l_rate or enable clipping)"
                 )
             train_avg = _weighted_means(epoch_metrics)
-            timing = {"epoch": epoch, "pages": sum(len(b) for b in batches),
+            timing = {"epoch": epoch, "pages": pages_done,
                       "train_s": time.perf_counter() - t_epoch, "eval_s": 0.0, "save_s": 0.0}
             if s.lr_schedule != "constant":
                 lr = self._current_lr()  # the schedule's value after this epoch
@@ -841,7 +867,7 @@ class Trainer:
                            global_step=global_step)
             timing["save_s"] = time.perf_counter() - t0
             self.timings.append(timing)
-            if stop:
+            if stop or self._stop_requested:
                 break
 
         if s.early_stopping_restore_best_weights and best_params is not None:

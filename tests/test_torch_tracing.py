@@ -266,3 +266,118 @@ def test_trace_without_all_threads_keeps_the_calling_threads_spans(predictor, pa
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {"ps.wait_prep", "ps.launch", "ps.forward", "ps.vote"} <= names
     assert len([s for s in spans() if s.name == "ps.trio"]) == 2  # the recorder sees every thread
+
+
+# --------------------------------------------------------- the train path
+TRAIN_PAGE = (64, 48)
+TRAIN_BATCH = 2
+
+
+@pytest.fixture(scope="module")
+def unet_trainer(tmp_path_factory):
+    """A UNet ``Trainer`` on 4 random 64x48 pages, batch 2: two steps an epoch."""
+    from page_segmentation_tpu_torch.data.dataset import Dataset, SingleData
+    from page_segmentation_tpu_torch.models.registry import Architecture
+    from page_segmentation_tpu_torch.train.metrics import Monitor
+    from page_segmentation_tpu_torch.train.trainer import Trainer, TrainSettings
+
+    rng = np.random.default_rng(3)
+    data = []
+    for _ in range(4):
+        image = rng.integers(0, 256, TRAIN_PAGE).astype(np.uint8)
+        data.append(SingleData(image=image, binary=(image < 128).astype(np.uint8),
+                               mask=rng.integers(0, 3, TRAIN_PAGE).astype(np.uint8)))
+    settings = TrainSettings(
+        n_epoch=1, n_classes=3, l_rate=1e-4, train_data=Dataset(data, DEFAULT_IMAGE_MAP),
+        validation_data=None, display=10, output_dir=str(tmp_path_factory.mktemp("unet")),
+        threads=1, monitor=Monitor.LOSS, architecture=Architecture.UNET,
+        batch_size=TRAIN_BATCH, seed=2 ** 31 + 5, device="cpu")
+    return Trainer(settings)
+
+
+def test_train_with_the_recorder_off_records_nothing(unet_trainer):
+    profiling.enable_spans()  # a new, empty recording
+    profiling.disable_spans()
+    unet_trainer.train()
+    assert spans() == [] and counters() == {}
+
+
+def test_one_step_span_a_step_with_its_children_under_it(unet_trainer):
+    profiling.enable_spans()
+    unet_trainer.train()
+    profiling.disable_spans()
+    records = spans()
+    by_id = {s.id: s for s in records}
+    steps = [s for s in records if s.name == "ps.step"]
+    assert [s.unit for s in steps] == [0, 1] and all(s.parent is None for s in steps)
+
+    def step_of(s):
+        while s.parent is not None:
+            s = by_id[s.parent]
+        return s
+
+    children = {}
+    for s in records:
+        if s.name == "ps.step":
+            continue
+        top = step_of(s)
+        assert top.name == "ps.step" and top.unit == s.unit, s
+        assert top.start <= s.start <= s.end <= top.end
+        children.setdefault(s.unit, []).append(s.name)
+    # ps.optim twice: the update and the new weights, then their copy into the module
+    for unit in (0, 1):
+        assert sorted(children[unit]) == sorted(["ps.batch_wait", "ps.fwd_bwd", "ps.optim",
+                                                 "ps.optim", "ps.dropout", "ps.dropout"])
+    parents = {s.name: by_id[s.parent].name for s in records if s.parent is not None}
+    assert parents == {"ps.batch_wait": "ps.step", "ps.fwd_bwd": "ps.step", "ps.optim": "ps.step",
+                       "ps.dropout": "ps.fwd_bwd"}
+
+
+def test_dropout_bytes_count_a_unet_steps_formula(unet_trainer):
+    from benchmark import train_arith
+
+    profiling.enable_spans()
+    unet_trainer.train()
+    profiling.disable_spans()
+    assert counters() == {"ps.dropout_bytes": 2 * train_arith.dropout_bytes(
+        "unet", TRAIN_BATCH, TRAIN_PAGE)}
+
+
+def test_request_stop_ends_the_loop_between_steps_without_a_sync(unet_trainer, monkeypatch):
+    """A stop asked for inside the first step ends the loop before the
+    second; no tensor is read on the host from the first step until the
+    epoch's end reads the means."""
+    from page_segmentation_tpu_torch.train import trainer as trainer_module
+
+    t = unet_trainer
+    inner, calls, reads, state = t._train_step, [], [], {"loop": False}
+
+    def step(*args):
+        state["loop"] = True
+        calls.append(1)
+        out = inner(*args)
+        t.request_stop()
+        return out
+
+    def epoch_end(*args, real=trainer_module._weighted_means):
+        state["loop"] = False
+        return real(*args)
+
+    def reading(name, real):
+        def wrapped(*args, **kwargs):
+            reads.append((name, state["loop"]))
+            return real(*args, **kwargs)
+        return wrapped
+
+    for name in ("item", "tolist", "numpy", "__float__", "__int__", "__bool__"):
+        monkeypatch.setattr(torch.Tensor, name, reading(name, getattr(torch.Tensor, name)))
+    monkeypatch.setattr(torch.cuda, "synchronize", reading("synchronize", lambda *a: None))
+    monkeypatch.setattr(trainer_module, "_weighted_means", epoch_end)
+    monkeypatch.setattr(t, "_train_step", step)
+    t.train()
+    assert len(calls) == 1 and t.timings[-1]["pages"] == TRAIN_BATCH
+    assert [name for name, in_loop in reads if in_loop] == []
+    assert ("__float__", False) in reads  # the epoch's means, read after the loop
+    monkeypatch.setattr(t, "_train_step", inner)
+    t.train()  # the next call starts with the flag down
+    assert t.timings[-1]["pages"] == 2 * TRAIN_BATCH

@@ -156,3 +156,29 @@ def test_params_to_jax_inverts_params_from_jax():
     tree = _tree(np.random.default_rng(5))
     back = params_to_jax(params_from_jax(tree))
     _assert_trees_close(back, tree, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["adam", "nadam", "adamax", "adadelta", "adagrad", "rmsprop", "sgd"])
+def test_an_update_makes_no_tensor_from_host_data(kind):
+    """An update runs on the device alone: a tensor made from a host value
+    (``aten.lift_fresh``, ``torch.tensor(x, device=...)``) is, on the card,
+    a copy that waits for everything launched before it, once a step."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.add(str(func))
+            return func(*args, **(kwargs or {}))
+
+    optimizer = Optimizers(kind).make(1e-3)
+    params = params_from_jax(_tree(np.random.default_rng(0)))
+    grads = params_from_jax(_tree(np.random.default_rng(1)))
+    state = optimizer.init(params)
+    with Ops() as ops:
+        for _ in range(2):
+            updates, state = optimizer.update(grads, state, params)
+    assert ops.seen and not {op for op in ops.seen if "lift_fresh" in op}, sorted(ops.seen)
